@@ -1,0 +1,2 @@
+from .config import LayerSpec, ModelConfig, layer_plan, scan_plan
+from .transformer import forward, init_params, param_shapes

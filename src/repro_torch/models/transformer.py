@@ -1,0 +1,171 @@
+"""Decoder-only transformer on paged KV pools.
+
+Port of ``repro.models.transformer`` for dense GQA configs. Params keep the
+JAX package's tree: ``embed``, ``final_norm``, ``prefix`` (a list of layer
+dicts) and ``scan`` (one dict per period position, every leaf stacked on a
+leading ``n_repeats`` axis); the layer loop indexes the stacked leaves.
+
+  param_shapes(cfg)                              -> tree of leaf shapes
+  init_params(cfg, seed, device, dtype)          -> seeded random params
+  forward(params, cfg, tokens, caches=, cache_pos=, block_tables=,
+          kv_block_size=)                        -> (logits, caches)
+
+Other architectures (MoE, MLA, SSM, cross-attention, encoders) and the
+cache-free and contiguous-cache forwards come with later slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from . import layers as L
+from .attention import PagedBatch, gqa_apply
+from .config import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE, ModelConfig,
+                     scan_plan)
+
+# leaves the JAX code multiplies in float32 (norm scales); every other leaf
+# is cast to the activation dtype at use, so the port stores it in that dtype
+F32_LEAVES = ("scale", "q_norm", "k_norm")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for configs outside the dense GQA slice of the port."""
+    plan = scan_plan(cfg)
+    bad = [s for s in plan.prefix + plan.period
+           if s.mixer not in (ATTN_GLOBAL, ATTN_LOCAL) or s.mlp != MLP_DENSE]
+    flags = [f for f in ("use_layernorm", "parallel_block", "post_block_norms",
+                         "abs_pos", "is_encoder_decoder") if getattr(cfg, f)]
+    if bad or flags or cfg.attn_kind != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA decoders are ported so far "
+            f"(unsupported layers {sorted(set(bad))}, flags {flags})")
+
+
+def _layer_shapes(cfg: ModelConfig):
+    """{name: (shape, init)}: init is a fan-in (normal / sqrt(fan_in)),
+    "ones" or "zeros" — the JAX package's init_gqa / init_mlp."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd, f = cfg.resolved_head_dim, cfg.d_ff
+    mixer = {"wq": ((d, hq, hd), d), "wk": ((d, hkv, hd), d),
+             "wv": ((d, hkv, hd), d), "wo": ((hq, hd, d), hq * hd)}
+    if cfg.qkv_bias:
+        mixer.update(bq=((hq, hd), "zeros"), bk=((hkv, hd), "zeros"),
+                     bv=((hkv, hd), "zeros"))
+    if cfg.qk_norm:
+        mixer.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
+    mlp = {"wi": ((d, f), d), "wo": ((f, d), f)}
+    if cfg.mlp_gated:
+        mlp["wg"] = ((d, f), d)
+    return {"norm1": {"scale": ((d,), "ones")}, "mixer": mixer,
+            "norm2": {"scale": ((d,), "ones")}, "mlp": mlp}
+
+
+def _stack(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stack(v, n) for k, v in tree.items()}
+    shape, init = tree
+    return ((n,) + shape, init)
+
+
+def _param_tree(cfg: ModelConfig):
+    check_supported(cfg)
+    plan = scan_plan(cfg)
+    d, v = cfg.d_model, cfg.padded_vocab
+    embed = {"embedding": ((v, d), d)}
+    if not cfg.tie_embeddings:
+        embed["unembed"] = ((v, d), d)
+    return {"embed": embed, "final_norm": {"scale": ((d,), "ones")},
+            "prefix": [_layer_shapes(cfg) for _ in plan.prefix],
+            "scan": [_stack(_layer_shapes(cfg), plan.n_repeats)
+                     for _ in plan.period]}
+
+
+def _map(tree, fn, name=""):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn, name) for v in tree]
+    return fn(name, tree)
+
+
+def param_shapes(cfg: ModelConfig):
+    """The params tree of ``cfg`` with each leaf's shape."""
+    return _map(_param_tree(cfg), lambda _, leaf: leaf[0])
+
+
+def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if name in F32_LEAVES else dtype
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                dtype=torch.bfloat16):
+    """Seeded random params, drawn directly on ``device`` in their storage
+    dtype: normal / sqrt(fan_in) matrices, unit norm scales, zero biases."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(name, leaf):
+        shape, init = leaf
+        dt = leaf_dtype(name, dtype)
+        if init == "ones":
+            return torch.ones(shape, dtype=dt, device=device)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dt, device=device)
+        w = torch.randn(shape, generator=gen, dtype=dt, device=device)
+        return w.mul_(1.0 / math.sqrt(init))
+
+    return _map(_param_tree(cfg), make)
+
+
+def _index(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _apply_layer(lp, cfg: ModelConfig, spec, x, cache, paged: PagedBatch):
+    window = cfg.sliding_window if spec.mixer == ATTN_LOCAL else 0
+    h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+    x = x + gqa_apply(lp["mixer"], cfg, h, layer_window=window, cache=cache,
+                      paged=paged)
+    h = L.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(lp["mlp"], h, act=cfg.mlp_act)
+
+
+def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
+            positions=None, *, caches=None, cache_pos=None, block_tables=None,
+            kv_block_size: int = 0, dtype=torch.bfloat16,
+            last_only: bool = False):
+    """Run the decoder stack over a window against paged KV pools.
+
+    tokens [B, T]; positions [B, T] (default cache_pos + arange(T));
+    caches from ``serving.kv_pool.init_paged_caches`` (written in place);
+    cache_pos [B] write offset; block_tables [B, MBS] int32.
+    Returns (logits [B, T or 1, padded_vocab], caches).
+    """
+    if caches is None or block_tables is None:
+        raise NotImplementedError(
+            "the port's forward runs on paged KV pools; cache-free forwards "
+            "(flash_attention) and contiguous caches come with later slices")
+    check_supported(cfg)
+    plan = scan_plan(cfg)
+    b, t = tokens.shape
+    if positions is None:
+        positions = cache_pos[:, None] + torch.arange(
+            t, device=tokens.device)[None, :]
+    paged = PagedBatch.build(block_tables, cache_pos, positions, t,
+                             kv_block_size)
+
+    x = L.embed_apply(params["embed"], tokens, cfg, dtype=dtype)
+    for i, spec in enumerate(plan.prefix):
+        x = _apply_layer(params["prefix"][i], cfg, spec, x,
+                         caches["prefix"][i], paged)
+    for r in range(plan.n_repeats):
+        for j, spec in enumerate(plan.period):
+            x = _apply_layer(_index(params["scan"][j], r), cfg, spec, x,
+                             _index(caches["scan"][j], r), paged)
+    if last_only:
+        x = x[:, -1:]
+    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed_apply(params["embed"], x, cfg), caches

@@ -1,0 +1,95 @@
+"""Typed configuration of the serving stack (port of
+``repro.serving.config``) with the JAX package's defaults.
+
+Settings outside the port's first slice raise ``NotImplementedError``:
+mode ``vsd``, the contiguous KV layout, quantized KV, trees, the prefix
+cache, ``tp``/``dp`` > 1 and temperature > 0.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+from .kv_pool import KV_DTYPES
+
+
+def _later(what: str):
+    raise NotImplementedError(f"{what} comes with a later slice of the port")
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decode options: ``max_new`` tokens to generate and the
+    temperature (0 or None = greedy, the only ported rule)."""
+    max_new: Optional[int] = None
+    temperature: Optional[float] = None
+
+    def __post_init__(self):
+        if self.max_new is not None and self.max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {self.max_new}")
+        if self.temperature is not None and self.temperature < 0:
+            raise ValueError(
+                f"temperature must be >= 0, got {self.temperature}")
+        if self.temperature:
+            _later("sampling (temperature > 0)")
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Engine construction knobs; validated once at construction."""
+
+    mode: str = "pard"
+    k: int = 8
+    max_batch: int = 4
+    max_len: int = 1024
+    temperature: float = 0.0
+    eos_id: Optional[int] = None
+    kv_layout: str = "paged"
+    kv_block_size: int = 64
+    kv_num_blocks: Optional[int] = None
+    kv_dtype: str = "bf16"
+    tree: Any = None
+    prefix_cache: bool = False
+    prefill_chunk: int = 8
+    prefill_budget: Optional[int] = None
+    admit_window: int = 8
+    tp: int = 1
+    dp: int = 1
+
+    def __post_init__(self):
+        if self.mode not in ("ar", "vsd", "pard"):
+            raise ValueError(f"mode must be ar, vsd or pard, got {self.mode!r}")
+        if self.kv_layout not in ("paged", "contiguous"):
+            raise ValueError(f"kv_layout must be paged or contiguous, "
+                             f"got {self.kv_layout!r}")
+        if self.kv_dtype not in ("bf16", "fp32", "int8", "fp8"):
+            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
+        for name in ("k", "max_batch", "max_len", "kv_block_size",
+                     "prefill_chunk", "admit_window", "tp", "dp"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, "
+                                 f"got {getattr(self, name)}")
+        if self.temperature < 0:
+            raise ValueError(f"temperature must be >= 0, "
+                             f"got {self.temperature}")
+        if self.mode == "vsd":
+            _later("VSD")
+        if self.kv_layout == "contiguous":
+            _later("the contiguous KV layout")
+        if self.kv_dtype not in KV_DTYPES:
+            _later("quantized KV")
+        if self.tree is not None:
+            _later("tree drafting")
+        if self.prefix_cache:
+            _later("the prefix cache")
+        if self.tp > 1 or self.dp > 1:
+            _later("multi-device serving (tp/dp > 1)")
+        if self.temperature > 0:
+            _later("sampling (temperature > 0)")
+
+    @classmethod
+    def from_args(cls, ns) -> "EngineConfig":
+        """Build from an argparse namespace; missing attributes keep the
+        field defaults."""
+        return cls(**{f.name: getattr(ns, f.name)
+                      for f in dataclasses.fields(cls) if hasattr(ns, f.name)})

@@ -1,0 +1,148 @@
+"""Device-side half of the serving stack (port of
+``repro.serving.executor``).
+
+The ``Executor`` owns what lives on the device: the paged KV pools, the
+one ``DecodeState`` and the step functions built by ``SpecDecoder`` with
+chunked prefill, so every step advances decoding rows AND consumes prompt
+chunks for prefilling rows in the same two forwards. Admission writes the
+prompt into ``gen`` and arms the prefill cursor; retirement freezes the
+row; ``sync_tables`` pushes the allocator's host block tables when they
+change.
+
+``dispatch`` runs one step eagerly on the current stream and returns a
+handle of device tensors; ``harvest`` copies them to the host, which waits
+for the step. CUDA graphs and the overlapped (pipelined) loop come with
+later work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.spec_decode import DecodeState, SpecDecoder
+from ..models.config import ModelConfig
+from . import kv_pool
+
+
+@dataclasses.dataclass
+class StepHandle:
+    """One dispatched step's outputs, still on the device. ``a`` is None
+    for mode="ar"; ``live`` marks the rows the step committed tokens for."""
+    a: Optional[torch.Tensor]
+    live: torch.Tensor
+    n: torch.Tensor
+    gen: torch.Tensor
+    n_draft: int
+
+
+@dataclasses.dataclass
+class StepResult:
+    """Host copy of a ``StepHandle``."""
+    a: Optional[np.ndarray]
+    live: np.ndarray
+    n: np.ndarray
+    gen: np.ndarray
+
+
+class Executor:
+    """Owns the DecodeState + KV pools and runs the step functions."""
+
+    def __init__(self, dec: SpecDecoder, target_cfg: ModelConfig,
+                 draft_cfg: Optional[ModelConfig], mode: str, max_batch: int,
+                 max_len: int, kv_block_size: int, num_blocks: int,
+                 kv_dtype: str, device: torch.device):
+        self.dec = dec
+        self.mode = mode
+        self.max_len = max_len
+        self.device = device
+        self._steps = {}
+        self._tables_version = -1
+        # draft forwards per step: one PARD window, none for AR
+        self._n_draft = 0 if mode == "ar" else 1
+
+        dtype = kv_pool.KV_DTYPES[kv_dtype]
+        tcache = kv_pool.init_paged_caches(target_cfg, num_blocks,
+                                           kv_block_size, dtype, device)
+        dcache = (kv_pool.init_paged_caches(draft_cfg, num_blocks,
+                                            kv_block_size, dtype, device)
+                  if draft_cfg is not None else None)
+        pools = [c for c in (tcache, dcache) if c is not None]
+        self.kv_capacity = sum(kv_pool.kv_capacity_bytes(c) for c in pools)
+        self.kv_per_block = sum(kv_pool.kv_bytes_per_block(c, num_blocks)
+                                for c in pools)
+
+        def zeros(*shape, dt=torch.int64):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        self.state = DecodeState(
+            gen=zeros(max_batch, max_len),
+            n=zeros(max_batch) + 2,                  # dummy-safe empty rows
+            m=zeros(max_batch) + 1,
+            done=torch.ones(max_batch, dtype=torch.bool, device=device),
+            tcache=tcache, dcache=dcache,
+            tables=zeros(max_batch, kv_pool.blocks_for(max_len, kv_block_size),
+                         dt=torch.int32),
+            pf_pos=zeros(max_batch), pf_len=zeros(max_batch))
+
+    def sync_tables(self, alloc: kv_pool.BlockAllocator) -> None:
+        """Push the host block tables to the device when stale (before any
+        forward that reads them, kv_pool I4)."""
+        if self._tables_version != alloc.version:
+            self.state.tables.copy_(torch.from_numpy(alloc.tables))
+            self._tables_version = alloc.version
+
+    def admit_row(self, slot: int, prompt: np.ndarray) -> None:
+        """Arm ``slot`` for a new request: prompt into ``gen``, counters to
+        the committed state, prefill cursor at 0. No forward runs here:
+        the steps prefill chunk by chunk."""
+        p = len(prompt)
+        row = np.zeros((self.max_len,), np.int64)
+        row[:p] = prompt
+        st = self.state
+        st.gen[slot] = torch.from_numpy(row).to(self.device)
+        st.n[slot] = p
+        st.m[slot] = p - 1
+        st.done[slot] = False
+        st.pf_pos[slot] = 0
+        st.pf_len[slot] = p - 1
+
+    def retire_row(self, slot: int) -> None:
+        self.state.done[slot] = True
+
+    def _step_fn(self, variant: str):
+        if variant not in self._steps:
+            if self.mode == "ar":
+                # the 1-wide decode window, and the prefill_chunk-wide mixed
+                # window for ticks where some row still prefills
+                self._steps[variant] = self.dec._build_ar_step(
+                    chunked=variant == "mixed")
+            else:
+                self._steps[variant] = self.dec._build_spec_step(
+                    "pard", chunked=True, greedy_only=True)
+        return self._steps[variant]
+
+    def dispatch(self, any_prefilling: bool = True) -> StepHandle:
+        """Run one step; ``any_prefilling`` (host knowledge) selects the AR
+        window width."""
+        variant = "mixed" if (any_prefilling and self.mode == "ar") \
+            else "decode"
+        st = self.state
+        live = ~(st.done | (st.pf_pos < st.pf_len))
+        a = None
+        if self.mode == "ar":
+            self.state = self._step_fn(variant)(st)
+        else:
+            self.state, a = self._step_fn(variant)(st)
+        return StepHandle(a=a, live=live, n=self.state.n, gen=self.state.gen,
+                          n_draft=self._n_draft)
+
+    def harvest(self, handle: StepHandle) -> StepResult:
+        """Host copies of a step's outputs (waits for the step)."""
+        def host(t):
+            return t.cpu().numpy()
+        return StepResult(a=None if handle.a is None else host(handle.a),
+                          live=host(handle.live), n=host(handle.n),
+                          gen=host(handle.gen))
