@@ -7,26 +7,33 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every CUDA kernel of the serving path, compiled from
-     ``src/repro_torch/csrc`` with ``nvcc -Xptxas -v``;
-  3. kernel vs plain: each kernel against its plain PyTorch version at the
-     serving path's shapes (target verify window, draft window, ragged
-     contexts up to 4096, garbage table entries, window + softcap, bf16 and
-     fp32 pools), max abs error against the stated tolerance;
-  4. timing: CUDA-event times of the kernel, its plain version and a
-     PyTorch library call on the same inputs (cold L2: inputs rotate over
-     more than 100 MB), beside the least time the card could take;
+  2. build: every CUDA kernel of the serving paths, compiled from
+     ``src/repro_torch/csrc`` in parallel (one ``nvcc -Xptxas -v`` each):
+     decode_attention_paged, decode_attention, tree_attention_paged,
+     tree_attention;
+  3. kernel vs plain: each kernel against its plain PyTorch version on the
+     card (target / draft / tiny head dims 128 / 64 / 32, bf16 and fp32,
+     ragged contexts up to 4096, window + softcap, random tree templates
+     with per-row win_len up to 32 slots; block 0 and every cache slot at
+     or past each row's reach poisoned with +-1e4), max abs error against
+     the stated tolerance;
+  4. timing: CUDA-event times of each kernel, its plain version and a
+     PyTorch library call (SDPA with a boolean mask over the gathered KV)
+     on the same inputs at the engine's shapes (cold L2: inputs rotate
+     over more than 128 MB), beside the least time the card could take;
   5. reference: tiny-target / tiny-draft in fp32 on the card — forward
-     logits against the CPU plain path, and greedy PARD tokens against AR
-     tokens (exactly equal: greedy speculative decoding is lossless);
-  6. engine: the default ``EngineConfig`` (PARD, K=8, paged bf16 KV in
-     blocks of 64, max_batch 4, chunked prefill) at full width —
-     llama3.1-8b target, llama3.2-1b draft, random weights from --seed —
-     serving --requests prompts; the kernel must launch once per attention
-     layer per step: (16 + 32) x steps;
-  7. AR comparison: the same requests in mode "ar"; the share of PARD
-     tokens equal to AR tokens up to the first divergence is reported
-     (bf16 products of different widths may round apart).
+     logits against the CPU plain path; greedy tokens of flat PARD, a tree,
+     a degenerate chain (1,)*K, on paged and contiguous KV, all equal to
+     AR tokens (greedy speculative decoding is lossless), the chain's
+     acceptance equal to flat K's;
+  6. engine at full width (llama3.1-8b target, llama3.2-1b draft, random
+     bf16 weights from --seed, K=8, max_batch 4): paged PARD (the
+     defaults), AR, the paged adaptive tree (default bank, 31-slot window),
+     contiguous flat PARD and the contiguous static tree
+     (2,2,1,1,1,1,1,1); each asserts the exact launches of every kernel
+     (one per attention layer per step);
+  7. AR comparison: the share of PARD tokens equal to AR tokens up to the
+     first divergence (bf16 products of different widths may round apart).
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers and the result line ``{"ok": true, "device": {...}}``.
@@ -46,6 +53,14 @@ PEAK_OPS = {"bfloat16": 989e12,      # dense tensor-core bf16
             "float32": 67e12}        # fp32 outside the tensor cores
 COLD_BYTES = 128 << 20               # rotate inputs past the 50 MB L2
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # by output (q) dtype
+REPLACES = {                         # kernel -> the TPU kernel it ports
+    "decode_attention_paged": "src/repro/kernels/decode_attention.py:178",
+    "decode_attention": "src/repro/kernels/decode_attention.py:115",
+    "tree_attention_paged": "src/repro/kernels/tree_attention.py:200",
+    "tree_attention": "src/repro/kernels/tree_attention.py:125",
+}
+KERNELS = tuple(REPLACES)
+WIDE = (2, 2, 1, 1, 1, 1, 1, 1)      # the default bank's 31-slot template at K=8
 
 
 class SmokeFailure(Exception):
@@ -67,54 +82,134 @@ def card_line() -> str:
 # kernel inputs
 # ---------------------------------------------------------------------------
 
-def paged_case(torch, gen, *, b, tq, hq, hkv, d, bs, kv_len, kv_dtype,
-               q_dtype, window=0, softcap=0.0, garbage=True, dev="cuda"):
-    """Pools holding exactly the blocks the rows need (interleaved, block 0
-    reserved), tables whose entries past each row's fill point at the
-    garbage block, and q at the last tq positions of each row."""
-    kv_len = [int(x) for x in kv_len]
-    mbs = max(-(-n // bs) for n in kv_len)
+def _templates(rng, b, tq, TreeTemplate, fixed=None):
+    """Per-row (anc, depth, win_len) of random valid templates of at most
+    tq slots (``fixed``: one branching for every row)."""
+    import numpy as np
+    anc = np.zeros((b, tq), np.int64)
+    depth = np.zeros((b, tq), np.int64)
+    win_len = np.zeros(b, np.int64)
+    for r in range(b):
+        if fixed is not None:
+            t = TreeTemplate.from_branching(fixed)
+        elif r == 0 and tq == 32:
+            t = TreeTemplate.flat(31)                 # slots 30 and 31 in play
+        else:
+            while True:
+                br = [int(x) for x in rng.integers(1, 4, size=rng.integers(1, 9))]
+                try:
+                    t = TreeTemplate.from_branching(br)
+                except ValueError:
+                    continue
+                if t.num_slots <= tq:
+                    break
+        ns = t.num_slots
+        anc[r, :ns], depth[r, :ns], win_len[r] = t.anc, t.depth, ns
+    return anc, depth, win_len
+
+
+def make_case(torch, gen, rng, kind, *, b, tq, hq, hkv, d, ctx, kv_dtype,
+              q_dtype, bs=64, s=None, window=0, softcap=0.0, poison=True,
+              template=None, dev="cuda"):
+    """Inputs of one kernel call. ``kind``: "paged" / "contig" (causal
+    decode: kv_len = ctx, queries at the last tq positions) or "tree_paged"
+    / "tree_contig" (the window at win_start = ctx, kv_len = ctx + tq,
+    logical positions ctx + depth of random templates, or ``template`` on
+    every row). Paged pools hold exactly the blocks each row needs (block 0
+    reserved); contiguous caches are [B, S, Hkv, D]. With ``poison``,
+    block 0 and every slot at or past each row's reach hold +-1e4."""
+    from repro_torch.core.spec_decode import TreeTemplate
+    tree = kind.startswith("tree")
+    ctx = torch.tensor([int(x) for x in ctx])
+    i32 = dict(device=dev, dtype=torch.int32)
+    if tree:
+        anc, depth, win_len = _templates(rng, b, tq, TreeTemplate, template)
+        win_len = torch.from_numpy(win_len)
+        kv_len = ctx + tq
+        reach = torch.minimum(kv_len, ctx + win_len)
+        q_pos = ctx[:, None] + torch.from_numpy(depth)
+    else:
+        kv_len = ctx
+        reach = kv_len
+        q_pos = (kv_len[:, None] - tq + torch.arange(tq)[None]).clamp(min=0)
+    case = dict(q=torch.randn(b, tq, hq, d, generator=gen, device=dev)
+                .to(q_dtype), kv_len=kv_len.to(**i32), q_pos=q_pos.to(**i32),
+                window=window, softcap=softcap)
+    if tree:
+        case.update(win_start=ctx.to(**i32), anc=torch.from_numpy(anc).to(dev),
+                    win_len=win_len.to(**i32))
+    if kind.endswith("contig"):
+        s = s or int(kv_len.max())
+        k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(kv_dtype)
+        v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(kv_dtype)
+        if poison:
+            for r in range(b):
+                k[r, int(reach[r]):], v[r, int(reach[r]):] = 1e4, -1e4
+        case.update(k=k, v=v)
+        return case
+    mbs = max(-(-int(n) // bs) for n in kv_len)
     nb = 1 + b * mbs
     k = torch.randn(nb, bs, hkv, d, generator=gen, device=dev).to(kv_dtype)
     v = torch.randn(nb, bs, hkv, d, generator=gen, device=dev).to(kv_dtype)
-    if garbage:                       # poison block 0: it must never count
-        k[0] = 1e4
-        v[0] = -1e4
-    perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
-    tables = perm.reshape(b, mbs).to(torch.int32)
-    for r, n in enumerate(kv_len):
-        tables[r, -(-n // bs):] = 0
-    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-    q_pos = (kl[:, None] - tq + torch.arange(tq, device=dev)[None, :]
-             ).clamp(min=0).to(torch.int32)
-    q = torch.randn(b, tq, hq, d, generator=gen, device=dev).to(q_dtype)
-    return dict(q=q, k_pages=k, v_pages=v, block_tables=tables, kv_len=kl,
-                q_pos=q_pos, window=window, softcap=softcap)
+    tables = (torch.randperm(nb - 1, generator=gen, device=dev) + 1
+              ).reshape(b, mbs).to(torch.int32)
+    for r, n in enumerate(kv_len.tolist()):
+        tables[r, -(-n // bs):] = 0                   # past the row: garbage
+    if poison:
+        k[0], v[0] = 1e4, -1e4
+        for r in range(b):                            # the rest of its blocks
+            for p in range(int(reach[r]), -(-int(kv_len[r]) // bs) * bs):
+                blk = int(tables[r, p // bs])
+                k[blk, p % bs], v[blk, p % bs] = 1e4, -1e4
+    case.update(k_pages=k, v_pages=v, block_tables=tables)
+    return case
 
 
-def visible_pairs(case) -> int:
-    """(query, key) pairs the masks admit, from this case's data."""
-    kl = case["kv_len"].long()[:, None]
-    qp = case["q_pos"].long()
-    hi = (qp + 1).minimum(kl)
-    lo = (qp - case["window"] + 1).clamp(min=0) if case["window"] else 0 * qp
-    return int((hi - lo).clamp(min=0).sum())
+def _kv(case):
+    if "k" in case:
+        return case["k"], case["v"]
+    from repro_torch.kernels.decode_attention import gather_pages
+    return (gather_pages(case["k_pages"], case["block_tables"]),
+            gather_pages(case["v_pages"], case["block_tables"]))
 
 
-def bound_ms(case):
-    """Least time on the card: bytes moved (q, out, tables, the K/V
-    entries below each row's reach) over the memory rate vs the
-    multiply-adds of QK^T and PV over the peak rate of the pools' type."""
-    q, k = case["q"], case["k_pages"]
+def allowed_mask(torch, case):
+    """[B, Tq, S] visibility over the row's (gathered) keys, as the plain
+    versions compute it."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import tree_attention as ta
+    k, _ = _kv(case)
+    b, s = k.shape[:2]
+    if "anc" not in case:
+        return da.causal_allowed(case["q_pos"], case["kv_len"], s,
+                                 case["window"])
+    kv_pos = torch.arange(s, device=k.device)[None].expand(b, s)
+    info = ta.TreeAttnInfo(case["win_start"], case["anc"], case["win_len"])
+    eff = torch.minimum(case["kv_len"].long(),
+                        case["win_start"].long() + case["win_len"].long())
+    return ta.tree_allowed(case["q_pos"], kv_pos, info, case["window"]) & (
+        kv_pos < eff[:, None])[:, None, :]
+
+
+def bound_ms(torch, case):
+    """Least time on the card: the bytes the call must move (q, out, the
+    int operands, and each row's K/V entries up to the last key any query
+    sees, read once) over the memory rate, vs the multiply-adds of QK^T
+    and PV over the visible (query, key) pairs at the peak rate of the KV
+    type; the larger of the two."""
+    q = case["q"]
+    k, _ = _kv(case)
     b, tq, hq, d = q.shape
     hkv = k.shape[2]
-    reach = (case["q_pos"].long().amax(dim=1) + 1).minimum(
-        case["kv_len"].long())
-    kv_bytes = int(reach.sum()) * hkv * d * k.element_size() * 2
-    small = sum(case[n].numel() * 4 for n in ("block_tables", "kv_len",
-                                              "q_pos"))
-    nbytes = 2 * q.numel() * q.element_size() + kv_bytes + small
-    ops = 4 * visible_pairs(case) * (hq // hkv) * hkv * d
+    allowed = allowed_mask(torch, case)
+    pos = torch.arange(allowed.shape[-1], device=allowed.device)
+    last = torch.where(allowed.any(dim=1), pos[None], -1).amax(dim=1) + 1
+    kv_bytes = int(last.sum()) * hkv * d * k.element_size() * 2
+    ints = sum(case[n].numel() * 4 for n in ("block_tables", "kv_len",
+                                             "q_pos", "win_start", "win_len",
+                                             "anc") if n in case)
+    nbytes = 2 * q.numel() * q.element_size() + kv_bytes + ints
+    ops = 4 * int(allowed.sum()) * hq * d
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[str(k.dtype).split(".")[1]]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -136,18 +231,35 @@ def time_ms(torch, fn, sets, iters):
     return start.elapsed_time(end) / iters
 
 
+def kernel_fns():
+    """name -> (kernel wrapper, plain version, case kind)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import tree_attention as ta
+    return {
+        "decode_attention_paged": (da.decode_attention_paged,
+                                   da.decode_attention_paged_ref, "paged"),
+        "decode_attention": (da.decode_attention, da.decode_attention_ref,
+                             "contig"),
+        "tree_attention_paged": (ta.tree_attention_paged,
+                                 ta.tree_attention_paged_ref, "tree_paged"),
+        "tree_attention": (ta.tree_attention, ta.tree_attention_ref,
+                           "tree_contig"),
+    }
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 def phase_build(build):
     t0 = time.perf_counter()
-    logs = build.build(["decode_attention_paged"])
-    log(f"[build] decode_attention_paged.cu in "
+    logs = build.build(list(KERNELS))
+    log(f"[build] {len(KERNELS)} sources in parallel in "
         f"{time.perf_counter() - t0:.1f}s (nvcc -O3 sm_90a)")
-    for line in logs["decode_attention_paged"].splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log("  " + line.strip())
+    for name in KERNELS:
+        for line in logs[name].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
 
 
 def _sync(torch, dev):
@@ -163,102 +275,167 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-def phase_correctness(torch, da, args, dev="cuda"):
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+def correctness_cases(torch):
     bf, f32 = torch.bfloat16, torch.float32
-    target = dict(b=4, tq=9, hq=32, hkv=8, d=128, bs=64)
-    draft = dict(b=4, tq=16, hq=32, hkv=8, d=64, bs=64)
+    target = dict(b=4, hq=32, hkv=8, d=128, bs=64)
+    draft = dict(b=4, hq=32, hkv=8, d=64, bs=64)
+    tiny = dict(b=4, hq=4, hkv=2, d=32, bs=8)
     ragged = [1, 700, 2049, 4096]
-    cases = [
-        ("target bf16 ragged", target, dict(kv_len=ragged, kv_dtype=bf, q_dtype=bf)),
-        ("draft bf16 ragged", draft, dict(kv_len=ragged, kv_dtype=bf, q_dtype=bf)),
-        ("target fp32 ragged", target, dict(kv_len=ragged, kv_dtype=f32, q_dtype=f32)),
-        ("draft fp32 ragged", draft, dict(kv_len=ragged, kv_dtype=f32, q_dtype=f32)),
-        ("target bf16 window+softcap", target,
-         dict(kv_len=[300, 1000, 64, 9], kv_dtype=bf, q_dtype=bf, window=256,
-              softcap=30.0)),
-        ("target fp32 window+softcap", target,
-         dict(kv_len=[300, 1000, 64, 9], kv_dtype=f32, q_dtype=f32,
-              window=100, softcap=50.0)),
-        ("draft bf16-q fp32 pools", draft,
-         dict(kv_len=[17, 333, 512, 1500], kv_dtype=f32, q_dtype=bf)),
+    decode = [
+        ("target bf16 ragged", dict(target, tq=9, ctx=ragged, kv_dtype=bf, q_dtype=bf)),
+        ("draft bf16 ragged", dict(draft, tq=16, ctx=ragged, kv_dtype=bf, q_dtype=bf)),
+        ("target fp32 ragged", dict(target, tq=9, ctx=ragged, kv_dtype=f32, q_dtype=f32)),
+        ("draft fp32 ragged", dict(draft, tq=16, ctx=ragged, kv_dtype=f32, q_dtype=f32)),
+        ("target bf16 window+softcap", dict(target, tq=9, ctx=[300, 1000, 64, 9],
+                                            kv_dtype=bf, q_dtype=bf, window=256,
+                                            softcap=30.0)),
+        ("target fp32 window+softcap", dict(target, tq=9, ctx=[300, 1000, 64, 9],
+                                            kv_dtype=f32, q_dtype=f32, window=100,
+                                            softcap=50.0)),
+        ("draft bf16-q fp32 KV", dict(draft, tq=16, ctx=[17, 333, 512, 1500],
+                                      kv_dtype=f32, q_dtype=bf)),
+        ("tiny fp32 D=32", dict(tiny, tq=8, ctx=[8, 30, 95, 200], kv_dtype=f32,
+                                q_dtype=f32)),
     ]
-    worst = 0.0
-    for name, shape, kw in cases:
-        case = paged_case(torch, gen, dev=dev, **shape, **kw)
-        out = da.decode_attention_paged(**case)
-        _sync(torch, dev)
-        want = da.decode_attention_paged_ref(**case)
-        if not torch.isfinite(out).all():
-            raise SmokeFailure(f"kernel output not finite ({name})")
-        err = (out.float() - want.float()).abs().max().item()
-        tol = TOL[str(case["q"].dtype).split(".")[1]]
-        log(f"[kernel vs plain] {name}: max_abs_err={err:.3e} tol={tol:g}")
-        if err > tol:
-            raise SmokeFailure(f"decode_attention_paged disagrees with its "
-                               f"plain version ({name}): {err} > {tol}")
-        worst = max(worst, err)
+    tree_ctx = [1, 700, 2049, 4064]
+    tree = [
+        ("target bf16 31-slot bank window", dict(target, tq=31, ctx=tree_ctx,
+                                                 kv_dtype=bf, q_dtype=bf)),
+        ("target fp32 31-slot bank window", dict(target, tq=31, ctx=tree_ctx,
+                                                 kv_dtype=f32, q_dtype=f32)),
+        ("draft-width bf16 32 slots", dict(draft, tq=32, ctx=tree_ctx,
+                                           kv_dtype=bf, q_dtype=bf)),
+        ("target bf16 window+softcap", dict(target, tq=23, ctx=[300, 1000, 64, 9],
+                                            kv_dtype=bf, q_dtype=bf, window=256,
+                                            softcap=30.0)),
+        ("draft fp32 window+softcap", dict(draft, tq=25, ctx=[300, 1000, 64, 9],
+                                           kv_dtype=f32, q_dtype=f32, window=100,
+                                           softcap=50.0)),
+        ("tiny fp32 D=32", dict(tiny, tq=11, ctx=[5, 30, 95, 200], kv_dtype=f32,
+                                q_dtype=f32)),
+    ]
+    return {"decode_attention_paged": decode, "decode_attention": decode,
+            "tree_attention_paged": tree, "tree_attention": tree}
+
+
+def phase_correctness(torch, args, dev="cuda"):
+    import numpy as np
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    fns = kernel_fns()
+    worst = {}
+    for name, cases in correctness_cases(torch).items():
+        fn, ref, kind = fns[name]
+        worst[name] = 0.0
+        for label, kw in cases:
+            case = make_case(torch, gen, rng, kind, dev=dev, **kw)
+            out = fn(**case)
+            _sync(torch, dev)
+            want = ref(**case)
+            if not torch.isfinite(out).all():
+                raise SmokeFailure(f"{name} output not finite ({label})")
+            err = (out.float() - want.float()).abs().max().item()
+            tol = TOL[str(case["q"].dtype).split(".")[1]]
+            log(f"[kernel vs plain] {name} {label}: max_abs_err={err:.3e} "
+                f"tol={tol:g}")
+            if not err <= tol:
+                raise SmokeFailure(f"{name} disagrees with its plain version "
+                                   f"({label}): {err} > {tol}")
+            worst[name] = max(worst[name], err)
     return worst
 
 
-def phase_timing(torch, F, da, args):
-    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+def timing_rows(torch, args):
+    """(kernel, label, case kwargs); the first row of each kernel is its
+    main row, at the full-width engine's shapes."""
+    bf, f32 = torch.bfloat16, torch.float32
     ctx = [args.prompt_len + args.max_new // 2 + 16 * i for i in range(4)]
-    rows = [
-        ("target verify @engine ctx", dict(b=4, tq=9, hq=32, hkv=8, d=128,
-                                          bs=64, kv_len=ctx,
-                                          kv_dtype=torch.bfloat16,
-                                          q_dtype=torch.bfloat16)),
-        ("draft window @engine ctx", dict(b=4, tq=16, hq=32, hkv=8, d=64,
-                                         bs=64, kv_len=[c - 9 for c in ctx],
-                                         kv_dtype=torch.bfloat16,
-                                         q_dtype=torch.bfloat16)),
-        ("target verify @ctx 1k-4k", dict(b=4, tq=9, hq=32, hkv=8, d=128,
-                                         bs=64, kv_len=[1024, 2048, 3072,
-                                                        4096],
-                                         kv_dtype=torch.bfloat16,
-                                         q_dtype=torch.bfloat16)),
-        ("target verify fp32 @engine ctx", dict(b=4, tq=9, hq=32, hkv=8,
-                                               d=128, bs=64, kv_len=ctx,
-                                               kv_dtype=torch.float32,
-                                               q_dtype=torch.float32)),
+    target = dict(b=4, hq=32, hkv=8, d=128, bs=64, kv_dtype=bf, q_dtype=bf)
+    draft = dict(b=4, hq=32, hkv=8, d=64, bs=64, kv_dtype=bf, q_dtype=bf)
+    # the contiguous engine keeps full rows of max_len (1024) positions
+    contig = dict(s=1024)
+    return [
+        ("decode_attention_paged", "target verify @engine ctx",
+         dict(target, tq=9, ctx=ctx)),
+        ("decode_attention_paged", "draft window @engine ctx",
+         dict(draft, tq=16, ctx=[c - 9 for c in ctx])),
+        ("decode_attention_paged", "target verify @ctx 1k-4k",
+         dict(target, tq=9, ctx=[1024, 2048, 3072, 4096])),
+        ("decode_attention_paged", "target verify fp32 @engine ctx",
+         dict(target, tq=9, ctx=ctx, kv_dtype=f32, q_dtype=f32)),
+        ("tree_attention_paged", "tree verify 31 slots @engine ctx",
+         dict(target, tq=31, ctx=ctx, template=WIDE)),
+        ("tree_attention_paged", "tree verify 31 slots @ctx 1k-4k",
+         dict(target, tq=31, ctx=[1024, 2048, 3072, 4064], template=WIDE)),
+        ("decode_attention", "target verify @engine ctx",
+         dict(target, tq=9, ctx=ctx, **contig)),
+        ("decode_attention", "draft window D=64 @engine ctx",
+         dict(draft, tq=16, ctx=[c - 9 for c in ctx], **contig)),
+        ("tree_attention", "tree verify 31 slots @engine ctx",
+         dict(target, tq=31, ctx=ctx, template=WIDE, **contig)),
     ]
-    results = []
-    for name, kw in rows:
-        first = paged_case(torch, gen, garbage=False, **kw)
+
+
+def phase_timing(torch, F, args):
+    import numpy as np
+    from repro_torch.kernels.tree_attention import anc_int32
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    rng = np.random.default_rng(args.seed + 7)
+    fns = kernel_fns()
+    results = {}
+
+    def timing_case(kind, kw):
+        case = make_case(torch, gen, rng, kind, poison=False, **kw)
+        if "anc" in case:
+            # the int32 bits the model hands the tree kernels (converted
+            # once per forward), so the timing holds no conversion
+            case["anc"] = anc_int32(case["anc"])
+        return case
+
+    for name, label, kw in timing_rows(torch, args):
+        fn, ref, kind = fns[name]
+        first = timing_case(kind, kw)
         per_set = sum(t.numel() * t.element_size() for t in first.values()
                       if hasattr(t, "numel"))
-        sets = [first] + [paged_case(torch, gen, garbage=False, **kw)
-                          for _ in range(max(1, math.ceil(COLD_BYTES / per_set)) - 1)]
-        ms = time_ms(torch, lambda c: da.decode_attention_paged(**c), sets, 200)
-        plain = time_ms(torch, lambda c: da.decode_attention_paged_ref(**c),
-                        sets, 20)
-        # library yardstick: one SDPA call on the pre-gathered view
+        n_sets = max(2, math.ceil(COLD_BYTES / per_set))
+        sets = [first] + [timing_case(kind, kw) for _ in range(n_sets - 1)]
+        ms = time_ms(torch, lambda c: fn(**c), sets, 200)
+        plain = time_ms(torch, lambda c: ref(**c), sets, 20)
+        # library yardstick: one SDPA call with the boolean mask over the
+        # pre-gathered KV (not used by the port)
         lib_sets = []
         for c in sets:
-            kc = da.gather_pages(c["k_pages"], c["block_tables"])
-            vc = da.gather_pages(c["v_pages"], c["block_tables"])
-            s = kc.shape[1]
-            kp = torch.arange(s, device="cuda")[None, None, :]
-            mask = (kp < c["kv_len"].long()[:, None, None]) & (
-                kp <= c["q_pos"].long()[:, :, None])
+            kc, vc = _kv(c)
             lib_sets.append((c["q"].transpose(1, 2), kc.transpose(1, 2),
-                             vc.transpose(1, 2), mask[:, None]))
+                             vc.transpose(1, 2),
+                             allowed_mask(torch, c)[:, None]))
         lib = time_ms(torch, lambda x: F.scaled_dot_product_attention(
             x[0], x[1], x[2], attn_mask=x[3], enable_gqa=True), lib_sets, 50)
-        bnd, by = bound_ms(first)
-        log(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}); "
-            f"{len(sets)} input sets, kv_len={kw['kv_len']}")
-        results.append(dict(name=name, ms=ms, plain_ms=plain, library_ms=lib,
-                            bound_ms=bnd, bound_by=by))
-        del sets, lib_sets
+        bnd, by = bound_ms(torch, first)
+        log(f"[timing] {name} {label}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, sdpa {lib:.4f} ms, bound {bnd:.5f} ms ({by}); "
+            f"{len(sets)} input sets, ctx={kw['ctx']}")
+        results.setdefault(name, dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                      bound_ms=bnd, bound_by=by))
+        del sets, lib_sets, first
         torch.cuda.empty_cache()
     return results
 
 
+def _tiny_engine_tokens(torch, Engine, EngineConfig, models, prompts, dev,
+                        **kw):
+    tc, tp, dc, dp = models
+    eng = Engine(tp, tc, dp, dc, config=EngineConfig(
+        max_batch=3, max_len=256, kv_block_size=16, kv_dtype="fp32", **kw),
+        device=dev)
+    rids = {eng.submit(p, 24): i for i, p in enumerate(prompts)}
+    toks = {rids[c.rid]: c.tokens for c in eng.run()}
+    return toks, eng.stats["accepted"], eng.stats["steps"]
+
+
 def phase_reference(torch, args, dev="cuda"):
-    """tiny-target / tiny-draft in fp32: card vs CPU logits, PARD == AR."""
+    """tiny-target / tiny-draft in fp32: card vs CPU logits; flat PARD,
+    trees and a chain on both layouts all give the AR tokens."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params
@@ -292,24 +469,51 @@ def phase_reference(torch, args, dev="cuda"):
 
     prompts = [rng.integers(0, tc.vocab_size, size=int(n))
                for n in rng.integers(4, 40, size=6)]
-    tokens = {}
-    for mode in ("pard", "ar"):
-        eng = Engine(tp, tc, dp, dc, config=EngineConfig(
-            mode=mode, k=4, max_batch=3, max_len=256, kv_block_size=16,
-            kv_dtype="fp32"), device=dev)
-        rids = {eng.submit(p, 24): i for i, p in enumerate(prompts)}
-        tokens[mode] = {rids[c.rid]: c.tokens for c in eng.run()}
-    same = all(np.array_equal(tokens["pard"][i], tokens["ar"][i])
-               for i in range(len(prompts)))
-    log(f"[reference] tiny fp32 engine on the card: PARD tokens == AR "
-        f"tokens for {len(prompts)} requests: {same}")
-    if not same:
-        raise SmokeFailure("greedy PARD tokens differ from AR tokens")
+    models = (tc, tp, dc, dp)
+    runs = {
+        "ar": dict(mode="ar", k=4),
+        "pard paged": dict(k=4),
+        "pard contiguous": dict(k=4, kv_layout="contiguous"),
+        "chain (1,1,1,1) paged": dict(tree=(1, 1, 1, 1)),
+        "tree (2,2,1,1) paged": dict(tree=(2, 2, 1, 1)),
+        "tree (2,2,1,1) contiguous": dict(tree=(2, 2, 1, 1),
+                                          kv_layout="contiguous"),
+        "adaptive tree paged": dict(k=4, adaptive_tree=True),
+    }
+    got = {name: _tiny_engine_tokens(torch, Engine, EngineConfig, models,
+                                     prompts, dev, **kw)
+           for name, kw in runs.items()}
+    for name, (toks_, acc, steps) in got.items():
+        same = all(np.array_equal(toks_[i], got["ar"][0][i])
+                   for i in range(len(prompts)))
+        log(f"[reference] tiny fp32 engine on the card, {name}: tokens == AR "
+            f"tokens for {len(prompts)} requests: {same}; accepted={acc} "
+            f"steps={steps}")
+        if not same:
+            raise SmokeFailure(f"greedy {name} tokens differ from AR tokens")
+    pairs = (("chain (1,1,1,1) paged", "pard paged"),
+             ("pard contiguous", "pard paged"),
+             ("tree (2,2,1,1) contiguous", "tree (2,2,1,1) paged"))
+    for a, b in pairs:
+        ok = got[a][1:] == got[b][1:]
+        log(f"[reference] {a} == {b} in accepted drafts and steps: {ok}")
+        if not ok:
+            raise SmokeFailure(f"{a} and {b} accept differently")
 
 
-def serve(torch, kernels, Engine, EngineConfig, tp, tc, dp, dc, prompts,
-          max_new, mode, dev):
-    eng = Engine(tp, tc, dp, dc, config=EngineConfig(mode=mode), device=dev)
+def expected_launches(mode, tc, dc, cfg, steps):
+    flat = "decode_attention_paged" if cfg.paged else "decode_attention"
+    tree = "tree_attention_paged" if cfg.paged else "tree_attention"
+    if mode == "ar":
+        return {flat: tc.num_layers * steps}
+    if cfg.tree is None:
+        return {flat: (tc.num_layers + dc.num_layers) * steps}
+    return {flat: dc.num_layers * steps, tree: tc.num_layers * steps}
+
+
+def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
+          label, dev):
+    eng = Engine(tp, tc, dp, dc, config=cfg, device=dev)
     for p in prompts:
         eng.submit(p, max_new)
     _sync(torch, dev)
@@ -320,30 +524,33 @@ def serve(torch, kernels, Engine, EngineConfig, tp, tc, dp, dc, prompts,
     comps = eng.run()
     _sync(torch, dev)
     wall = time.perf_counter() - t0
-    launches = kernels.launches["decode_attention_paged"]   # just after
+    launches = dict(kernels.launches)         # just after
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     steps = eng.stats["steps"]
-    layers = tc.num_layers + (dc.num_layers if mode == "pard" else 0)
+    want = expected_launches(cfg.mode, tc, dc, cfg, steps)
     gen = sum(c.generated for c in comps)
     lat = eng.latency_summary()
-    log(f"[engine {mode}] {len(comps)} requests, {gen} tokens in {wall:.2f}s "
-        f"= {gen / wall:.1f} tok/s; steps={steps} "
+    hist = (f" tree_hist={eng.stats['tree_hist'].tolist()} "
+            f"switches={eng.stats['tree_switches']} bank={eng.bank.key}"
+            if eng.bank is not None else "")
+    log(f"[engine {label}] {len(comps)} requests, {gen} tokens in "
+        f"{wall:.2f}s = {gen / wall:.1f} tok/s; steps={steps} "
         f"mean_accepted={eng.mean_accepted():.3f} "
         f"step_p50={lat['step_p50_ms']:.2f}ms "
         f"step_p95={lat['step_p95_ms']:.2f}ms "
         f"peak_mem={peak / 2**30:.2f}GiB "
-        f"kv_capacity={eng.kv_capacity_bytes() / 2**20:.0f}MiB; "
-        f"decode_attention_paged launches={launches} "
-        f"(expected {layers} x {steps} = {layers * steps})")
+        f"kv_capacity={eng.kv_capacity_bytes() / 2**20:.0f}MiB;{hist} "
+        f"launches={launches} (expected {want})")
     if len(comps) != len(prompts) or any(c.generated != max_new
                                          for c in comps):
-        raise SmokeFailure(f"engine {mode} did not complete every request")
+        raise SmokeFailure(f"engine {label} did not complete every request")
     for c in comps:
         if not (0 <= c.tokens.min() and c.tokens.max() < tc.vocab_size):
-            raise SmokeFailure(f"engine {mode} emitted tokens outside the vocab")
-    if dev == "cuda" and launches != layers * steps:
-        raise SmokeFailure(f"engine {mode}: {launches} kernel launches, "
-                           f"expected {layers * steps}")
+            raise SmokeFailure(f"engine {label} emitted tokens outside the "
+                               f"vocab")
+    if dev == "cuda" and launches != want:
+        raise SmokeFailure(f"engine {label}: launches {launches}, expected "
+                           f"{want}")
     return {c.rid: c.tokens for c in comps}, launches
 
 
@@ -367,27 +574,44 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, tc.vocab_size, size=args.prompt_len)
                for _ in range(args.requests)]
-    # warm-up: library handles and allocator pools, not counted
-    warm = Engine(tp, tc, dp, dc, config=EngineConfig(), device=dev)
-    warm.submit(prompts[0][:32], 8)
-    warm.run()
-    del warm
-    pard, launches = serve(torch, kernels, Engine, EngineConfig, tp, tc, dp,
-                           dc, prompts, args.max_new, "pard", dev)
-    if dev == "cuda":
-        torch.cuda.empty_cache()
-    ar, _ = serve(torch, kernels, Engine, EngineConfig, tp, tc, None, None,
-                  prompts, args.max_new, "ar", dev)
-    shares = []
-    for rid, toks in pard.items():
-        p = args.prompt_len
-        a, b = toks[p:], ar[rid][p:]
-        diff = np.nonzero(a != b)[0]
-        shares.append((diff[0] if diff.size else len(a)) / len(a))
-    log(f"[ar comparison] share of PARD tokens equal to AR tokens up to the "
-        f"first divergence: mean {np.mean(shares):.3f} per request "
-        f"{[round(float(s), 3) for s in shares]}")
-    return launches
+    runs = [
+        ("pard paged", EngineConfig(), "decode_attention_paged"),
+        ("ar paged", EngineConfig(mode="ar"), None),
+        ("adaptive tree paged", EngineConfig(adaptive_tree=True),
+         "tree_attention_paged"),
+        ("pard contiguous", EngineConfig(kv_layout="contiguous"),
+         "decode_attention"),
+        (f"tree {','.join(map(str, WIDE))} contiguous",
+         EngineConfig(tree=WIDE, kv_layout="contiguous"), "tree_attention"),
+    ]
+    tokens, main_launches = {}, {}
+    for label, cfg, main in runs:
+        # warm-up per configuration (library handles, allocator pools),
+        # not counted
+        warm = Engine(tp, tc, dp, dc, config=cfg, device=dev)
+        warm.submit(prompts[0][:32], 8)
+        warm.run()
+        del warm
+        d_p, d_c = (None, None) if cfg.mode == "ar" else (dp, dc)
+        tokens[label], launches = serve(torch, kernels, Engine, cfg, tp, tc,
+                                        d_p, d_c, prompts, args.max_new,
+                                        label, dev)
+        if main is not None:
+            main_launches[main] = launches.get(main, 0)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    for label in tokens:
+        if label == "ar paged":
+            continue
+        shares = []
+        for rid, toks in tokens[label].items():
+            a, b = toks[args.prompt_len:], tokens["ar paged"][rid][args.prompt_len:]
+            diff = np.nonzero(a != b)[0]
+            shares.append((diff[0] if diff.size else len(a)) / len(a))
+        log(f"[ar comparison] {label}: share of tokens equal to AR tokens up "
+            f"to the first divergence: mean {np.mean(shares):.3f} per request "
+            f"{[round(float(s), 3) for s in shares]}")
+    return main_launches
 
 
 def _leaves(tree):
@@ -419,7 +643,6 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import build
-    from repro_torch.kernels import decode_attention as da
 
     t_start = time.perf_counter()
     card = card_line()
@@ -427,24 +650,20 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     try:
         phase_build(build)
-        err = phase_correctness(torch, da, args)
-        timing = phase_timing(torch, F, da, args)
+        errs = phase_correctness(torch, args)
+        timing = phase_timing(torch, F, args)
         phase_reference(torch, args)
         launches = phase_engine(torch, kernels, args)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    main_row = timing[0]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "decode_attention_paged", "route": "cuda",
-        "source": "src/repro_torch/csrc/decode_attention_paged.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:178",
-        "launches": launches, "max_abs_err": err,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}))
+    rows = [dict(name=name, route="cuda",
+                 source=f"src/repro_torch/csrc/{name}.cu",
+                 replaces=REPLACES[name], launches=launches[name],
+                 max_abs_err=errs[name], **timing[name]) for name in KERNELS]
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,34 @@
+// Contiguous decode / verify attention for Hopper (sm_90a), plain C
+// interface.
+//
+// Replaces the TPU kernel `decode_attention` in
+// src/repro/kernels/decode_attention.py (the `_kernel` body under its
+// contiguous BlockSpecs): the engine's `kv_layout="contiguous"` routes every
+// draft window, flat verify window and prompt chunk here, under the causal
+// mask, against one full-length cache row per batch row.
+//
+//   q       [B, Tq, Hq, D]     float32 or bfloat16
+//   k, v    [B, S, Hkv, D]     float32 or bfloat16 caches
+//   kv_len  [B] int32          valid cache entries of each row
+//   q_pos   [B, Tq] int32      absolute position of each query
+//   out     [B, Tq, Hq, D]     q's dtype
+//
+// The TPU wrapper pads S to its 256-key block; this kernel needs no padding:
+// its sweep stops at min(kv_len, S) and never reads past S. The tile loop,
+// its mask and what bounds it are in attention_tile.cuh.
+
+#include "attention_tile.cuh"
+
+// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = ok).
+extern "C" int decode_attention(const void* q, const void* k, const void* v,
+                                const void* kv_len, const void* q_pos, void* out,
+                                int b, int tq, int hq, int hkv, int d, int s,
+                                int q_dtype, int kv_dtype, float scale, int window,
+                                float softcap, void* stream) {
+  if (s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const attn::Args a{q, k, v, static_cast<const int*>(kv_len),
+                     static_cast<const int*>(q_pos), nullptr, nullptr, nullptr,
+                     out, tq, hq, hkv, scale, window, softcap};
+  const attn::ContigKV kv{s};
+  return attn::dispatch<attn::ContigKV, false>(a, kv, b, d, q_dtype, kv_dtype, stream);
+}

@@ -1,0 +1,38 @@
+// Contiguous tree-verification attention for Hopper (sm_90a), plain C
+// interface.
+//
+// Replaces the TPU kernel `tree_attention` in
+// src/repro/kernels/tree_attention.py (the `_kernel` body under its
+// contiguous BlockSpecs): the engine's `kv_layout="contiguous"` routes the
+// tree verify window and tree-mode prompt chunks here, against one
+// full-length cache row per batch row, under the ancestor-bitmask tree mask.
+//
+//   q          [B, Tq, Hq, D]     float32 or bfloat16, Tq <= 32
+//   k, v       [B, S, Hkv, D]     float32 or bfloat16 caches
+//   kv_len     [B] int32          valid cache entries of each row
+//   q_pos      [B, Tq] int32      LOGICAL position of each query (root+depth)
+//   win_start  [B] int32          cache slot of window slot 0
+//   win_len    [B] int32          meaningful window slots of each row
+//   anc        [B, Tq] uint32     ancestor-or-self bitmask of each query
+//   out        [B, Tq, Hq, D]     q's dtype
+//
+// No padding of S: the sweep stops at min(kv_len, S, win_start + win_len).
+// The tile loop, the mask and what bounds it are in attention_tile.cuh.
+
+#include "attention_tile.cuh"
+
+// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = ok).
+extern "C" int tree_attention(const void* q, const void* k, const void* v,
+                              const void* kv_len, const void* q_pos,
+                              const void* win_start, const void* win_len,
+                              const void* anc, void* out, int b, int tq, int hq,
+                              int hkv, int d, int s, int q_dtype, int kv_dtype,
+                              float scale, int window, float softcap, void* stream) {
+  if (s <= 0 || tq > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const attn::Args a{q, k, v, static_cast<const int*>(kv_len),
+                     static_cast<const int*>(q_pos), static_cast<const int*>(win_start),
+                     static_cast<const int*>(win_len), static_cast<const uint32_t*>(anc),
+                     out, tq, hq, hkv, scale, window, softcap};
+  const attn::ContigKV kv{s};
+  return attn::dispatch<attn::ContigKV, true>(a, kv, b, d, q_dtype, kv_dtype, stream);
+}

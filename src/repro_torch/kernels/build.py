@@ -3,19 +3,22 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/repro_torch/`` at the repository root, at first use, and loaded
-with ``ctypes``. The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded. Several sources compile in parallel (one ``nvcc`` each).
+with ``ctypes``. The library's file name carries a hash of the source, of
+every ``csrc`` header it includes (``#include "..."``, followed
+recursively) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. Several sources compile in parallel
+(one ``nvcc`` each).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,11 +40,29 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, recursively."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to (content-addressed over the
+    source, its local headers and the flags)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

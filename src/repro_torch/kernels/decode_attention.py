@@ -1,15 +1,18 @@
-"""Paged decode / verify attention: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Decode / verify attention: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Port of ``repro.kernels.decode_attention.decode_attention_paged`` (the
-Pallas TPU kernel) and its oracle ``ref.decode_attention_paged_ref``. A
-small query window attends to a block-paged KV pool through per-row block
-tables. Every attention of the serving engine's step goes through here:
-the PARD draft window (Tq = 2K), the verify window (Tq = K+1) and prompt
-chunks.
+Ports of the Pallas TPU kernels ``repro.kernels.decode_attention``
+(``decode_attention_paged`` and the contiguous ``decode_attention``) and
+their oracles ``ref.decode_attention_paged_ref`` / ``ref.decode_attention_ref``.
+A small query window attends under the causal mask to a block-paged KV
+pool through per-row block tables, or to a contiguous ``[B, S, Hkv, D]``
+cache. The serving engine's flat steps go through here: the PARD draft
+window (Tq = 2K), the verify window (Tq = K+1) and prompt chunks.
 
-``decode_attention_paged`` launches ``csrc/decode_attention_paged.cu`` for
-CUDA tensors and takes the plain version only for CPU tensors.
+Each wrapper launches its kernel (``csrc/decode_attention_paged.cu``,
+``csrc/decode_attention.cu``) for CUDA tensors and takes the plain version
+only for CPU tensors. The helpers shared with ``tree_attention`` (the
+masked f32 core ``attend``, the input checks and the launcher) live here.
 """
 from __future__ import annotations
 
@@ -36,16 +39,26 @@ def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tenso
     return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
 
 
-def attend(q, k, v, q_pos, kv_len, *, window=0, softcap=0.0, scale=None):
+def causal_allowed(q_pos, kv_len, s: int, window: int = 0):
+    """Boolean [B, Tq, S] causal visibility: key p is visible to query i
+    iff p < kv_len, p <= q_pos[i] and, with a window, p > q_pos[i] - window."""
+    kp = torch.arange(s, device=q_pos.device)[None, None, :]         # [1,1,S]
+    qp = q_pos.long()[:, :, None]                                    # [B,Tq,1]
+    allowed = (kp < kv_len.long()[:, None, None]) & (kp <= qp)
+    if window:
+        allowed &= kp > qp - window
+    return allowed
+
+
+def attend(q, k, v, allowed, *, softcap=0.0, scale=None):
     """Masked GQA attention core in f32 (the plain arithmetic).
 
     q: [B, Tq, Hq, D]; k, v: [B, S, Hkv, D] where key index = position;
-    q_pos: [B, Tq]; kv_len: [B]. Key p is visible to query i iff
-    p < kv_len, p <= q_pos[i] and, with a window, p > q_pos[i] - window.
-    A query that sees no key returns 0, as the kernel does.
+    allowed: [B, Tq, S] bool. A query that sees no key returns 0, as the
+    kernels do.
     """
     b, tq, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     g = hq // hkv
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -53,11 +66,6 @@ def attend(q, k, v, q_pos, kv_len, *, window=0, softcap=0.0, scale=None):
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    kp = torch.arange(s, device=q.device)[None, None, :]            # [1,1,S]
-    qp = q_pos.long()[:, :, None]                                    # [B,Tq,1]
-    allowed = (kp < kv_len.long()[:, None, None]) & (kp <= qp)
-    if window:
-        allowed &= kp > qp - window
     allowed = allowed[:, None, None]                                 # [B,1,1,Tq,S]
     logits = torch.where(allowed, logits, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
@@ -68,59 +76,104 @@ def attend(q, k, v, q_pos, kv_len, *, window=0, softcap=0.0, scale=None):
     return out.reshape(b, tq, hq, d).to(q.dtype)
 
 
+def decode_attention_ref(q, k, v, kv_len, q_pos, *, window=0, softcap=0.0,
+                         scale=None):
+    """The contiguous plain version: the causal masked f32 softmax over
+    k, v [B, S, Hkv, D]."""
+    return attend(q, k, v, causal_allowed(q_pos, kv_len, k.shape[1], window),
+                  softcap=softcap, scale=scale)
+
+
 def decode_attention_paged_ref(q, k_pages, v_pages, block_tables, kv_len,
                                q_pos, *, window=0, softcap=0.0, scale=None):
-    """The plain version: gather each row's pages into a contiguous view,
-    then the masked f32 softmax of ``attend``."""
-    k = gather_pages(k_pages, block_tables)
-    v = gather_pages(v_pages, block_tables)
-    return attend(q, k, v, q_pos, kv_len, window=window, softcap=softcap,
-                  scale=scale)
+    """The paged plain version: gather each row's pages into a contiguous
+    view, then the contiguous plain version."""
+    return decode_attention_ref(q, gather_pages(k_pages, block_tables),
+                                gather_pages(v_pages, block_tables), kv_len,
+                                q_pos, window=window, softcap=softcap,
+                                scale=scale)
 
 
-def _check(q, k_pages, v_pages, block_tables, kv_len, q_pos):
+def check_inputs(q, k, v, ints):
+    """Raise on what the attention kernels do not take.
+
+    q: [B, Tq, Hq, D]; k, v: a pool [NB, bs, Hkv, D] or a cache
+    [B, S, Hkv, D]; ``ints``: (name, tensor, shape) of each int32 operand.
+    """
     b, tq, hq, d = q.shape
-    nb, bs, hkv, dk = k_pages.shape
-    if v_pages.shape != k_pages.shape or dk != d:
-        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not fit q {tuple(q.shape)}")
+    if k.dim() != 4 or v.shape != k.shape or k.shape[-1] != d:
+        raise ValueError(f"K/V shapes {tuple(k.shape)} / {tuple(v.shape)} do "
+                         f"not fit q {tuple(q.shape)}")
+    hkv = k.shape[2]
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built (kernel takes {_HEAD_DIMS})")
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE \
-            or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"dtypes q={q.dtype} k={k_pages.dtype} "
-                        f"v={v_pages.dtype}: kernel takes float32/bfloat16")
-    if block_tables.shape[0] != b or kv_len.shape != (b,) \
-            or q_pos.shape != (b, tq):
-        raise ValueError("block_tables [B, MBS], kv_len [B] and q_pos "
-                         "[B, Tq] must match q's batch and window")
-    for name, t in (("block_tables", block_tables), ("kv_len", kv_len),
-                    ("q_pos", q_pos)):
+        raise ValueError(f"head dim {d} not built (kernels take {_HEAD_DIMS})")
+    if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE \
+            or v.dtype != k.dtype:
+        raise TypeError(f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}: "
+                        f"kernels take float32/bfloat16")
+    for name, t, shape in ints:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("kv_len", kv_len),
-                    ("q_pos", q_pos)):
+    for name, t in [("q", q), ("k", k), ("v", v)] + [(n, t) for n, t, _ in ints]:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:                 # 16-byte vector loads
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _lib():
-    lib = build.load("decode_attention_paged")
-    fn = lib.decode_attention_paged
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [ci] * 10 + [ctypes.c_float, ci,
-                                             ctypes.c_float, vp]
-        fn.restype = ci
-    return fn
+def check_scales(k_scale, v_scale):
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "quantized KV scales come with the quantized-KV slice of the port")
+
+
+def on_card(q) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (the plain version); raises for any other device."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return True
+
+
+def launch(name: str, q, *args):
+    """Launch ``csrc/<name>.cu``'s C function on q's device and the
+    current stream, with ``args`` as ctypes values (the stream is
+    appended); raise on a CUDA error, count the launch."""
+    fn = getattr(build.load(name), name)
+    with torch.cuda.device(q.device):
+        args = args + (ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),)
+        if fn.argtypes is None:
+            fn.argtypes = [type(a) for a in args]
+            fn.restype = ctypes.c_int
+        err = fn(*args)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def dims(q, k, scale, window, softcap):
+    """The shared trailing ctypes arguments: (B, Tq, Hq, Hkv, D) first,
+    then the dtype codes, scale, window and softcap."""
+    b, tq, hq, d = q.shape
+    head = tuple(ctypes.c_int(x) for x in (b, tq, hq, k.shape[2], d))
+    tail = (ctypes.c_int(_DTYPE_CODE[q.dtype]), ctypes.c_int(_DTYPE_CODE[k.dtype]),
+            ctypes.c_float(scale), ctypes.c_int(int(window)),
+            ctypes.c_float(float(softcap)))
+    return head, tail
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
@@ -134,32 +187,51 @@ def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
     int32; q_pos: [B, Tq] int32. Returns [B, Tq, Hq, D] in q's dtype.
     Quantized pools (``k_scale`` / ``v_scale``) are not ported yet.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV scales come with the quantized-KV slice of the port")
-    d = q.shape[-1]
+    check_scales(k_scale, v_scale)
+    b, tq, _, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
+    if not on_card(q):
         return decode_attention_paged_ref(q, k_pages, v_pages, block_tables,
                                           kv_len, q_pos, window=window,
                                           softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    _check(q, k_pages, v_pages, block_tables, kv_len, q_pos)
-    b, tq, hq, _ = q.shape
-    nb, bs, hkv, _ = k_pages.shape
+    check_inputs(q, k_pages, v_pages, (
+        ("block_tables", block_tables, (b, block_tables.shape[-1])),
+        ("kv_len", kv_len, (b,)), ("q_pos", q_pos, (b, tq))))
+    nb, bs = k_pages.shape[:2]
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                     block_tables.data_ptr(), kv_len.data_ptr(),
-                     q_pos.data_ptr(),
-                     out.data_ptr(), b, tq, hq, hkv, d, nb, bs,
-                     block_tables.shape[1], _DTYPE_CODE[q.dtype],
-                     _DTYPE_CODE[k_pages.dtype], float(scale), int(window),
-                     float(softcap), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_attention_paged launch failed: CUDA error "
-                           f"{err}")
-    launches["decode_attention_paged"] += 1
+    head, tail = dims(q, k_pages, scale, window, softcap)
+    launch("decode_attention_paged", q, ptr(q), ptr(k_pages), ptr(v_pages),
+           ptr(block_tables), ptr(kv_len), ptr(q_pos), ptr(out), *head,
+           *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail)
+    return out
+
+
+def decode_attention(q, k, v, kv_len, q_pos, *,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None, window=0,
+                     softcap=0.0, scale=None):
+    """Contiguous-cache decode/verify attention.
+
+    q: [B, Tq, Hq, D]; k, v: [B, S, Hkv, D]; kv_len: [B] int32 (entries
+    past S do not exist: the sweep stops at min(kv_len, S)); q_pos: [B, Tq]
+    int32. Returns [B, Tq, Hq, D] in q's dtype. Unlike the TPU wrapper, S
+    is not padded. Quantized caches (``k_scale`` / ``v_scale``) are not
+    ported yet.
+    """
+    check_scales(k_scale, v_scale)
+    b, tq, _, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if not on_card(q):
+        return decode_attention_ref(q, k, v, kv_len, q_pos, window=window,
+                                    softcap=softcap, scale=scale)
+    if k.shape[0] != b:
+        raise ValueError(f"cache batch {k.shape[0]} != q batch {b}")
+    check_inputs(q, k, v, (("kv_len", kv_len, (b,)),
+                           ("q_pos", q_pos, (b, tq))))
+    out = torch.empty_like(q)
+    head, tail = dims(q, k, scale, window, softcap)
+    launch("decode_attention", q, ptr(q), ptr(k), ptr(v), ptr(kv_len),
+           ptr(q_pos), ptr(out), *head, ctypes.c_int(k.shape[1]), *tail)
     return out

@@ -5,8 +5,11 @@ weights and stream synthetic requests through it.
       --target llama3.1-8b --draft llama3.2-1b --requests 8 --max-new 128
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
-the tiny-* configs there). Prints throughput, mean accepted tokens per
-step, latency percentiles and KV usage.
+the tiny-* configs there). ``--tree 2,2,1,1`` drafts a static candidate
+tree, ``--adaptive-tree`` picks per request from the default bank at depth
+``--k``; ``--contiguous`` keeps full-length KV rows instead of the paged
+pool. Prints throughput, mean accepted tokens per step, latency
+percentiles, KV usage and, with trees, the template histogram.
 """
 from __future__ import annotations
 
@@ -19,6 +22,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--target", required=True)
     ap.add_argument("--draft", default=None)
     ap.add_argument("--mode", default="pard", choices=["ar", "pard"])
+    ap.add_argument("--tree", default=None, metavar="B1,B2,...",
+                    help="tree-structured PARD drafting: per-depth branching "
+                         "factors of the candidate tree (e.g. 2,2,1,1); "
+                         "overrides --k with the tree depth")
+    ap.add_argument("--adaptive-tree", action="store_true",
+                    help="per-request tree templates from the default "
+                         "chain/balanced/wide bank at depth --k, re-selected "
+                         "from acceptance statistics; excludes --tree")
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=48)
@@ -27,6 +38,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the prompts")
+    layout = ap.add_mutually_exclusive_group()
+    layout.add_argument("--paged", dest="kv_layout", action="store_const",
+                        const="paged", help="block-paged KV cache (default)")
+    layout.add_argument("--contiguous", dest="kv_layout",
+                        action="store_const", const="contiguous",
+                        help="full-length per-slot KV rows")
+    ap.set_defaults(kv_layout="paged")
     ap.add_argument("--kv-block-size", type=int, default=64)
     ap.add_argument("--kv-dtype", default="bf16", choices=["bf16", "fp32"])
     ap.add_argument("--kv-num-blocks", type=int, default=None,
@@ -84,9 +102,14 @@ def main(argv=None):
           f"ttft_p50={lat['ttft_p50_ms']:.0f}ms "
           f"tok_p50={lat['tok_p50_ms']:.1f}ms "
           f"tok_p95={lat['tok_p95_ms']:.1f}ms")
-    print(f"kv dtype={args.kv_dtype} "
+    print(f"kv layout={args.kv_layout} dtype={args.kv_dtype} "
           f"capacity={eng.kv_capacity_bytes() / 1e6:.2f}MB "
           f"peak_in_use={eng.peak_kv_bytes_in_use / 1e6:.2f}MB")
+    if eng.bank is not None:
+        print(f"tree bank={eng.bank.key} k={eng.k} "
+              f"window={eng.bank.max_slots} "
+              f"tree_hist={eng.stats['tree_hist'].tolist()} "
+              f"switches={eng.stats['tree_switches']}")
     print("engine stats:", eng.stats)
     return comps
 

@@ -1,51 +1,79 @@
-"""GQA self-attention on block-paged KV pools.
+"""GQA self-attention on block-paged KV pools or contiguous KV caches.
 
-Port of the paged GQA path of ``repro.models.attention``. A pool holds
-fixed-size KV blocks ``[NB, block, Hkv, D]``; a per-row block table
-``[B, MBS]`` maps absolute position ``p`` to ``(table[b, p // block],
-p % block)``. Block 0 is the reserved garbage block: positions past a
-row's table, or unallocated entries, write there and are never read
-(reads are bounded by ``kv_len``).
+Port of the cached GQA paths of ``repro.models.attention``. Two layouts:
 
-Unlike the JAX code, which returns new pools, the port writes each
-window's K/V into the pools IN PLACE (``index_copy_`` on the layer's
-``[NB, bs, Hkv, D]`` view of the stacked ``[R, NB, bs, Hkv, D]`` leaf), so
-a step never copies a pool. Every attention call goes through the paged
-decode kernel (``kernels.decode_attention``).
+  * paged: a pool holds fixed-size KV blocks ``[NB, block, Hkv, D]``; a
+    per-row block table ``[B, MBS]`` maps absolute position ``p`` to
+    ``(table[b, p // block], p % block)``. Block 0 is the reserved garbage
+    block: positions past a row's table, or unallocated entries, write
+    there and are never read (reads are bounded by ``kv_len``);
+  * contiguous: one full-length row ``[B, max_len, Hkv, D]`` per batch row,
+    indexed by absolute position; a window's write start is clamped to
+    ``max_len - T`` like ``lax.dynamic_update_slice`` (the scheduler's
+    slack keeps that from happening).
+
+Unlike the JAX code, which returns new caches, the port writes each
+window's K/V IN PLACE (``index_copy_`` over the leading two axes of the
+layer's view of the stacked leaf), so a step never copies a cache.
+
+Every attention call goes through a kernel wrapper: causal windows to
+``decode_attention_paged`` / ``decode_attention``, tree verify windows
+(``TreeAttnInfo``) to ``tree_attention_paged`` / ``tree_attention``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from ..kernels.decode_attention import decode_attention_paged
+from ..kernels.decode_attention import decode_attention, decode_attention_paged
+from ..kernels.tree_attention import (TreeAttnInfo, anc_int32,  # noqa: F401
+                                      tree_allowed, tree_attention,
+                                      tree_attention_paged)
 from .layers import apply_rope
 
 
 @dataclasses.dataclass(frozen=True)
-class PagedBatch:
-    """Paged-KV addressing of one forward window, shared by every layer.
+class CacheBatch:
+    """KV addressing of one forward window, shared by every layer.
 
-    tables [B, MBS] int32, write_index [B * T] flat pool entries the
-    window's tokens write to, kv_len [B] int32 (= cache_pos + T) and
-    q_pos [B, T] int32 query positions.
+    tables [B, MBS] int32 (None: contiguous caches); write_index [B * T]
+    flat entries over a cache's two leading axes that the window's tokens
+    write to; kv_len [B] int32 (= cache_pos + T); q_pos [B, T] int32 query
+    positions; tree: the window's ``TreeAttnInfo`` with int32 operands
+    (None: causal windows).
     """
-    tables: torch.Tensor
+    tables: Optional[torch.Tensor]
     write_index: torch.Tensor
     kv_len: torch.Tensor
     q_pos: torch.Tensor
+    tree: Optional[TreeAttnInfo] = None
 
     @staticmethod
-    def build(block_tables, cache_pos, positions, t: int, block_size: int):
-        pos = cache_pos.long()[:, None] + torch.arange(
-            t, device=cache_pos.device)[None, :]
-        return PagedBatch(
-            tables=block_tables.to(torch.int32).contiguous(),
-            write_index=paged_flat_index(block_tables, pos,
-                                         block_size).reshape(-1),
-            kv_len=(cache_pos + t).to(torch.int32),
-            q_pos=positions.to(torch.int32).contiguous())
+    def build(cache_pos, positions, t: int, *, block_tables=None,
+              block_size: int = 0, max_len: int = 0, tree_info=None):
+        if block_tables is not None:
+            pos = cache_pos.long()[:, None] + torch.arange(
+                t, device=cache_pos.device)[None, :]
+            write_index = paged_flat_index(block_tables, pos,
+                                           block_size).reshape(-1)
+            block_tables = block_tables.to(torch.int32).contiguous()
+        else:
+            write_index = contiguous_flat_index(cache_pos, t, max_len)
+        tree = None
+        if tree_info is not None:
+            win_len = tree_info.win_len
+            if win_len is None:
+                win_len = torch.full_like(cache_pos, t)
+            tree = TreeAttnInfo(
+                win_start=tree_info.win_start.to(torch.int32).contiguous(),
+                anc=anc_int32(tree_info.anc).contiguous(),
+                win_len=win_len.to(torch.int32).contiguous())
+        return CacheBatch(tables=block_tables, write_index=write_index,
+                          kv_len=(cache_pos + t).to(torch.int32),
+                          q_pos=positions.to(torch.int32).contiguous(),
+                          tree=tree)
 
 
 def paged_flat_index(block_tables, pos, block_size: int):
@@ -59,13 +87,34 @@ def paged_flat_index(block_tables, pos, block_size: int):
     return blk * block_size + pos % block_size
 
 
-def write_cache_paged(pages, new, write_index):
-    """Write new KV [B, T, ...] into the pool [NB, bs, ...] in place at the
-    flat entries ``write_index`` [B * T]. Rows own disjoint blocks, so only
+def contiguous_flat_index(cache_pos, t: int, max_len: int):
+    """Flat entries [B * T] of a contiguous cache [B, max_len, ...] that a
+    T-token window at per-row ``cache_pos`` writes: row b's start is clamped
+    into [0, max_len - T], as ``lax.dynamic_update_slice`` clamps it."""
+    b = cache_pos.shape[0]
+    start = cache_pos.long().clamp(0, max_len - t)
+    rows = torch.arange(b, device=cache_pos.device)[:, None] * max_len
+    return (rows + start[:, None]
+            + torch.arange(t, device=cache_pos.device)[None, :]).reshape(-1)
+
+
+def write_cache(buf, new, write_index):
+    """Write new KV [B, T, ...] into a cache in place at the flat entries
+    ``write_index`` [B * T] over its two leading axes: a pool [NB, bs, ...]
+    (``paged_flat_index``) or a contiguous cache [B, max_len, ...]
+    (``contiguous_flat_index``). Rows own disjoint entries, so only
     garbage-block entries can repeat (their content is never read)."""
-    flat = pages.view((-1,) + tuple(pages.shape[2:]))
+    flat = buf.view((-1,) + tuple(buf.shape[2:]))
     flat.index_copy_(0, write_index,
-                     new.reshape((-1,) + tuple(new.shape[2:])).to(pages.dtype))
+                     new.reshape((-1,) + tuple(new.shape[2:])).to(buf.dtype))
+
+
+def init_gqa_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda"):
+    """Zeroed contiguous KV rows ``{"k", "v"}`` of [batch, max_len, Hkv, D]."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {n: torch.zeros(shape, dtype=dtype, device=device)
+            for n in ("k", "v")}
 
 
 def _qk_rmsnorm(x, scale, eps):
@@ -80,9 +129,9 @@ def _proj(x, w):
 
 
 def gqa_apply(params, cfg, x, *, layer_window: int = 0, cache,
-              paged: PagedBatch):
+              batch: CacheBatch):
     """Self attention of the window ``x`` [B, T, d] against the layer's
-    paged pools ``cache = {"k", "v"}`` (written in place). Returns y."""
+    cache ``{"k", "v"}`` (written in place). Returns y."""
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
@@ -94,13 +143,30 @@ def gqa_apply(params, cfg, x, *, layer_window: int = 0, cache,
         q = _qk_rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = _qk_rmsnorm(k, params["k_norm"], cfg.norm_eps)
     if cfg.use_rope:
-        q = apply_rope(q, paged.q_pos, cfg.rope_theta)
-        k = apply_rope(k, paged.q_pos, cfg.rope_theta)
-    write_cache_paged(cache["k"], k, paged.write_index)
-    write_cache_paged(cache["v"], v, paged.write_index)
-    out = decode_attention_paged(
-        q.contiguous(), cache["k"], cache["v"], paged.tables, paged.kv_len,
-        paged.q_pos, window=layer_window, softcap=cfg.attn_softcap,
-        scale=cfg.attn_scale or None)
+        q = apply_rope(q, batch.q_pos, cfg.rope_theta)
+        k = apply_rope(k, batch.q_pos, cfg.rope_theta)
+    write_cache(cache["k"], k, batch.write_index)
+    write_cache(cache["v"], v, batch.write_index)
+    q = q.contiguous()
+    kw = dict(window=layer_window, softcap=cfg.attn_softcap,
+              scale=cfg.attn_scale or None)
+    tr = batch.tree
+    if batch.tables is not None:
+        if tr is None:
+            out = decode_attention_paged(q, cache["k"], cache["v"],
+                                         batch.tables, batch.kv_len,
+                                         batch.q_pos, **kw)
+        else:
+            out = tree_attention_paged(q, cache["k"], cache["v"],
+                                       batch.tables, batch.kv_len,
+                                       batch.q_pos, tr.win_start, tr.anc,
+                                       win_len=tr.win_len, **kw)
+    elif tr is None:
+        out = decode_attention(q, cache["k"], cache["v"], batch.kv_len,
+                               batch.q_pos, **kw)
+    else:
+        out = tree_attention(q, cache["k"], cache["v"], batch.kv_len,
+                             batch.q_pos, tr.win_start, tr.anc,
+                             win_len=tr.win_len, **kw)
     wo = params["wo"].to(x.dtype)                      # [Hq, hd, d]
     return out.flatten(2) @ wo.flatten(0, 1)

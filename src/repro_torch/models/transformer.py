@@ -1,4 +1,4 @@
-"""Decoder-only transformer on paged KV pools.
+"""Decoder-only transformer on paged KV pools or contiguous KV caches.
 
 Port of ``repro.models.transformer`` for dense GQA configs. Params keep the
 JAX package's tree: ``embed``, ``final_norm``, ``prefix`` (a list of layer
@@ -7,11 +7,12 @@ leading ``n_repeats`` axis); the layer loop indexes the stacked leaves.
 
   param_shapes(cfg)                              -> tree of leaf shapes
   init_params(cfg, seed, device, dtype)          -> seeded random params
+  init_caches(cfg, batch, max_len, dtype, device) -> contiguous KV caches
   forward(params, cfg, tokens, caches=, cache_pos=, block_tables=,
-          kv_block_size=)                        -> (logits, caches)
+          kv_block_size=, tree_info=)            -> (logits, caches)
 
 Other architectures (MoE, MLA, SSM, cross-attention, encoders) and the
-cache-free and contiguous-cache forwards come with later slices.
+cache-free forward come with later slices.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Any, Dict
 import torch
 
 from . import layers as L
-from .attention import PagedBatch, gqa_apply
+from .attention import CacheBatch, gqa_apply, init_gqa_cache
 from .config import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE, ModelConfig,
                      scan_plan)
 
@@ -124,11 +125,36 @@ def _index(tree, r: int):
     return tree[r]
 
 
-def _apply_layer(lp, cfg: ModelConfig, spec, x, cache, paged: PagedBatch):
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device="cuda"):
+    """Zeroed contiguous KV caches with the params tree's layout: ``prefix``
+    holds one ``{"k", "v"}`` dict per prefix layer [batch, max_len, Hkv, D],
+    ``scan`` one per period position with a leading repeats axis."""
+    check_supported(cfg)
+    plan = scan_plan(cfg)
+
+    def stacked():
+        c = init_gqa_cache(cfg, batch, max_len, dtype, device)
+        return {n: t.expand((plan.n_repeats,) + t.shape).contiguous()
+                for n, t in c.items()}
+
+    return {"prefix": [init_gqa_cache(cfg, batch, max_len, dtype, device)
+                       for _ in plan.prefix],
+            "scan": [stacked() for _ in plan.period]}
+
+
+def _cache_len(caches) -> int:
+    """max_len of contiguous caches (every layer shares it)."""
+    if caches["prefix"]:
+        return caches["prefix"][0]["k"].shape[1]
+    return caches["scan"][0]["k"].shape[2]
+
+
+def _apply_layer(lp, cfg: ModelConfig, spec, x, cache, batch: CacheBatch):
     window = cfg.sliding_window if spec.mixer == ATTN_LOCAL else 0
     h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
     x = x + gqa_apply(lp["mixer"], cfg, h, layer_window=window, cache=cache,
-                      paged=paged)
+                      batch=batch)
     h = L.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
     return x + L.mlp_apply(lp["mlp"], h, act=cfg.mlp_act)
 
@@ -136,35 +162,40 @@ def _apply_layer(lp, cfg: ModelConfig, spec, x, cache, paged: PagedBatch):
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             positions=None, *, caches=None, cache_pos=None, block_tables=None,
             kv_block_size: int = 0, dtype=torch.bfloat16,
-            last_only: bool = False):
-    """Run the decoder stack over a window against paged KV pools.
+            last_only: bool = False, tree_info=None):
+    """Run the decoder stack over a window against KV caches.
 
     tokens [B, T]; positions [B, T] (default cache_pos + arange(T));
-    caches from ``serving.kv_pool.init_paged_caches`` (written in place);
-    cache_pos [B] write offset; block_tables [B, MBS] int32.
+    caches (written in place) from ``serving.kv_pool.init_paged_caches``
+    with block_tables [B, MBS] int32, or from ``init_caches`` with
+    block_tables None; cache_pos [B] write offset; tree_info: the verify
+    window's ``TreeAttnInfo`` (tree attention instead of causal).
     Returns (logits [B, T or 1, padded_vocab], caches).
     """
-    if caches is None or block_tables is None:
+    if caches is None:
         raise NotImplementedError(
-            "the port's forward runs on paged KV pools; cache-free forwards "
-            "(flash_attention) and contiguous caches come with later slices")
+            "the port's forward runs against KV caches; cache-free forwards "
+            "(flash_attention) come with a later slice")
     check_supported(cfg)
     plan = scan_plan(cfg)
     b, t = tokens.shape
     if positions is None:
         positions = cache_pos[:, None] + torch.arange(
             t, device=tokens.device)[None, :]
-    paged = PagedBatch.build(block_tables, cache_pos, positions, t,
-                             kv_block_size)
+    batch = CacheBatch.build(
+        cache_pos, positions, t, block_tables=block_tables,
+        block_size=kv_block_size,
+        max_len=0 if block_tables is not None else _cache_len(caches),
+        tree_info=tree_info)
 
     x = L.embed_apply(params["embed"], tokens, cfg, dtype=dtype)
     for i, spec in enumerate(plan.prefix):
         x = _apply_layer(params["prefix"][i], cfg, spec, x,
-                         caches["prefix"][i], paged)
+                         caches["prefix"][i], batch)
     for r in range(plan.n_repeats):
         for j, spec in enumerate(plan.period):
             x = _apply_layer(_index(params["scan"][j], r), cfg, spec, x,
-                             _index(caches["scan"][j], r), paged)
+                             _index(caches["scan"][j], r), batch)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)

@@ -5,11 +5,16 @@ over the scheduler (host) and the executor (device).
     writes the prompt into the generation buffer; each step then advances
     decoding rows and consumes a prompt chunk for every prefilling row in
     the same forwards (chunked prefill);
-  * KV lives in a block-paged pool with per-slot block tables;
+  * KV lives in a block-paged pool with per-slot block tables
+    (``kv_layout="paged"``) or in full-length rows per slot
+    (``"contiguous"``);
   * one step advances all active slots; finished slots free at once and
     new requests admit on the next tick (continuous batching);
   * modes: "pard" (one draft forward + one verify forward per step) and
-    "ar" (the baseline); greedy verification makes them token-identical.
+    "ar" (the baseline); greedy verification makes them token-identical;
+  * tree drafting (``tree=`` a static template, ``adaptive_tree=True`` the
+    default bank with per-request re-selection): the PARD draft fills a
+    candidate tree and one forward verifies it, still token-identical.
 
 The engine runs on the CUDA card unless ``device="cpu"`` is passed; the
 params must already live on that device (``models.init_params`` or
@@ -25,7 +30,7 @@ from ..models.config import ModelConfig
 from . import kv_pool
 from .config import EngineConfig, SamplingParams
 from .executor import Executor
-from .scheduler import Completion, Scheduler  # noqa: F401  (re-export)
+from .scheduler import Completion, Scheduler, TreeController  # noqa: F401
 
 
 class Engine:
@@ -50,25 +55,39 @@ class Engine:
             if where.type != self.device.type:
                 raise ValueError(f"{name} params are on {where}, the engine "
                                  f"runs on {self.device}")
+        self.paged = config.paged
         self.dec = SpecDecoder(
             target_params, target_cfg, draft_params, draft_cfg,
             k=config.k if self.mode != "ar" else 1,
-            kv_block_size=config.kv_block_size,
-            prefill_chunk=config.prefill_chunk)
-        nb = config.kv_num_blocks or kv_pool.default_num_blocks(
-            config.max_batch, config.max_len, config.kv_block_size)
-        self.alloc = kv_pool.BlockAllocator(nb, config.kv_block_size,
-                                            config.max_batch, config.max_len)
+            kv_block_size=config.kv_block_size if self.paged else 0,
+            prefill_chunk=config.prefill_chunk,
+            tree=config.tree if self.mode == "pard" else None)
+        self.k = self.dec.k            # a tree bank overrides k (its depth)
+        self.bank = self.dec.tree      # TemplateBank, or None: no tree
+        nb = None
+        self.alloc = None
+        if self.paged:
+            nb = config.kv_num_blocks or kv_pool.default_num_blocks(
+                config.max_batch, config.max_len, config.kv_block_size)
+            self.alloc = kv_pool.BlockAllocator(
+                nb, config.kv_block_size, config.max_batch, config.max_len)
         self.ex = Executor(self.dec, target_cfg, draft_cfg, self.mode,
-                           config.max_batch, config.max_len,
+                           config.max_batch, config.max_len, self.paged,
                            config.kv_block_size, nb, config.kv_dtype,
                            self.device)
+        self.ctrl = (TreeController(self.bank, config.max_batch,
+                                    config.tree_ewma)
+                     if config.adaptive_tree and self.bank is not None
+                     else None)
         self.sched = Scheduler(self.dec, self.ex, self.alloc,
                                max_batch=config.max_batch,
                                max_len=config.max_len, eos_id=config.eos_id,
                                admit_window=config.admit_window,
-                               prefill_budget=config.prefill_budget)
-        self.peak_kv_bytes_in_use = 0
+                               prefill_budget=config.prefill_budget,
+                               ctrl=self.ctrl,
+                               tree_reselect_every=config.tree_reselect_every)
+        # contiguous rows are committed up front: their peak is the capacity
+        self.peak_kv_bytes_in_use = 0 if self.paged else self.kv_capacity_bytes()
 
     def submit(self, prompt, max_new: Optional[int] = None,
                params: Optional[SamplingParams] = None) -> int:
@@ -105,7 +124,9 @@ class Engine:
         return self.ex.kv_capacity
 
     def kv_bytes_in_use(self) -> int:
-        """KV bytes of the blocks live requests hold."""
+        """KV bytes of the blocks live requests hold (contiguous: all)."""
+        if not self.paged:
+            return self.kv_capacity_bytes()
         return self.alloc.blocks_in_use * self.ex.kv_per_block
 
     @property

@@ -1,13 +1,15 @@
 """Device-side half of the serving stack (port of
 ``repro.serving.executor``).
 
-The ``Executor`` owns what lives on the device: the paged KV pools, the
-one ``DecodeState`` and the step functions built by ``SpecDecoder`` with
-chunked prefill, so every step advances decoding rows AND consumes prompt
-chunks for prefilling rows in the same two forwards. Admission writes the
-prompt into ``gen`` and arms the prefill cursor; retirement freezes the
-row; ``sync_tables`` pushes the allocator's host block tables when they
-change.
+The ``Executor`` owns what lives on the device: the KV caches (paged pools
+or contiguous rows), the one ``DecodeState`` and the step functions built
+by ``SpecDecoder`` with chunked prefill, so every step advances decoding
+rows AND consumes prompt chunks for prefilling rows in the same two
+forwards. Admission writes the prompt into ``gen`` and arms the prefill
+cursor; retirement freezes the row; ``sync_tables`` pushes the allocator's
+host block tables when they change; the scheduler's template
+re-selections (tree drafting) are applied to ``tree_idx`` at the next
+dispatch, before the step.
 
 ``dispatch`` runs one step eagerly on the current stream and returns a
 handle of device tensors; ``harvest`` copies them to the host, which waits
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.spec_decode import DecodeState, SpecDecoder
+from ..models import init_caches
 from ..models.config import ModelConfig
 from . import kv_pool
 
@@ -30,49 +33,57 @@ from . import kv_pool
 @dataclasses.dataclass
 class StepHandle:
     """One dispatched step's outputs, still on the device. ``a`` is None
-    for mode="ar"; ``live`` marks the rows the step committed tokens for."""
+    for mode="ar", ``rank`` [B, D] only for tree steps; ``live`` marks the
+    rows the step committed tokens for; ``tree_sel`` is the host copy of
+    the per-slot templates the step ran with."""
     a: Optional[torch.Tensor]
+    rank: Optional[torch.Tensor]
     live: torch.Tensor
     n: torch.Tensor
     gen: torch.Tensor
     n_draft: int
+    tree_sel: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
 class StepResult:
     """Host copy of a ``StepHandle``."""
     a: Optional[np.ndarray]
+    rank: Optional[np.ndarray]
     live: np.ndarray
     n: np.ndarray
     gen: np.ndarray
 
 
 class Executor:
-    """Owns the DecodeState + KV pools and runs the step functions."""
+    """Owns the DecodeState + KV caches and runs the step functions."""
 
     def __init__(self, dec: SpecDecoder, target_cfg: ModelConfig,
                  draft_cfg: Optional[ModelConfig], mode: str, max_batch: int,
-                 max_len: int, kv_block_size: int, num_blocks: int,
-                 kv_dtype: str, device: torch.device):
+                 max_len: int, paged: bool, kv_block_size: int,
+                 num_blocks: Optional[int], kv_dtype: str,
+                 device: torch.device):
         self.dec = dec
         self.mode = mode
         self.max_len = max_len
         self.device = device
         self._steps = {}
         self._tables_version = -1
-        # draft forwards per step: one PARD window, none for AR
+        # draft forwards per step: one PARD window (flat or tree), none for AR
         self._n_draft = 0 if mode == "ar" else 1
 
         dtype = kv_pool.KV_DTYPES[kv_dtype]
-        tcache = kv_pool.init_paged_caches(target_cfg, num_blocks,
-                                           kv_block_size, dtype, device)
-        dcache = (kv_pool.init_paged_caches(draft_cfg, num_blocks,
-                                            kv_block_size, dtype, device)
-                  if draft_cfg is not None else None)
-        pools = [c for c in (tcache, dcache) if c is not None]
-        self.kv_capacity = sum(kv_pool.kv_capacity_bytes(c) for c in pools)
-        self.kv_per_block = sum(kv_pool.kv_bytes_per_block(c, num_blocks)
-                                for c in pools)
+        cfgs = [c for c in (target_cfg, draft_cfg) if c is not None]
+        if paged:
+            caches = [kv_pool.init_paged_caches(c, num_blocks, kv_block_size,
+                                                dtype, device) for c in cfgs]
+            self.kv_per_block = sum(kv_pool.kv_bytes_per_block(c, num_blocks)
+                                    for c in caches)
+        else:
+            caches = [init_caches(c, max_batch, max_len, dtype, device)
+                      for c in cfgs]
+            self.kv_per_block = 0
+        self.kv_capacity = sum(kv_pool.kv_capacity_bytes(c) for c in caches)
 
         def zeros(*shape, dt=torch.int64):
             return torch.zeros(shape, dtype=dt, device=device)
@@ -82,22 +93,25 @@ class Executor:
             n=zeros(max_batch) + 2,                  # dummy-safe empty rows
             m=zeros(max_batch) + 1,
             done=torch.ones(max_batch, dtype=torch.bool, device=device),
-            tcache=tcache, dcache=dcache,
-            tables=zeros(max_batch, kv_pool.blocks_for(max_len, kv_block_size),
-                         dt=torch.int32),
+            tcache=caches[0], dcache=caches[1] if len(caches) > 1 else None,
+            tables=(zeros(max_batch, kv_pool.blocks_for(max_len, kv_block_size),
+                          dt=torch.int32) if paged else None),
+            tree_idx=zeros(max_batch) if dec.tree is not None else None,
             pf_pos=zeros(max_batch), pf_len=zeros(max_batch))
 
-    def sync_tables(self, alloc: kv_pool.BlockAllocator) -> None:
+    def sync_tables(self, alloc: Optional[kv_pool.BlockAllocator]) -> None:
         """Push the host block tables to the device when stale (before any
-        forward that reads them, kv_pool I4)."""
-        if self._tables_version != alloc.version:
+        forward that reads them, kv_pool I4). No-op without an allocator
+        (contiguous layout)."""
+        if alloc is not None and self._tables_version != alloc.version:
             self.state.tables.copy_(torch.from_numpy(alloc.tables))
             self._tables_version = alloc.version
 
-    def admit_row(self, slot: int, prompt: np.ndarray) -> None:
+    def admit_row(self, slot: int, prompt: np.ndarray, tree_idx: int = 0) -> None:
         """Arm ``slot`` for a new request: prompt into ``gen``, counters to
-        the committed state, prefill cursor at 0. No forward runs here:
-        the steps prefill chunk by chunk."""
+        the committed state, prefill cursor at 0, template ``tree_idx``
+        (tree drafting). No forward runs here: the steps prefill chunk by
+        chunk."""
         p = len(prompt)
         row = np.zeros((self.max_len,), np.int64)
         row[:p] = prompt
@@ -108,9 +122,15 @@ class Executor:
         st.done[slot] = False
         st.pf_pos[slot] = 0
         st.pf_len[slot] = p - 1
+        if st.tree_idx is not None:
+            self.set_tree_idx(slot, tree_idx)
 
     def retire_row(self, slot: int) -> None:
         self.state.done[slot] = True
+
+    def set_tree_idx(self, slot: int, tree_idx: int) -> None:
+        """Pin ``slot`` to bank template ``tree_idx`` (tree drafting)."""
+        self.state.tree_idx[slot] = int(tree_idx)
 
     def _step_fn(self, variant: str):
         if variant not in self._steps:
@@ -119,30 +139,42 @@ class Executor:
                 # window for ticks where some row still prefills
                 self._steps[variant] = self.dec._build_ar_step(
                     chunked=variant == "mixed")
+            elif self.dec.tree is not None:
+                self._steps[variant] = self.dec._build_tree_step(
+                    chunked=True, greedy_only=True)
             else:
                 self._steps[variant] = self.dec._build_spec_step(
                     "pard", chunked=True, greedy_only=True)
         return self._steps[variant]
 
-    def dispatch(self, any_prefilling: bool = True) -> StepHandle:
-        """Run one step; ``any_prefilling`` (host knowledge) selects the AR
-        window width."""
+    def dispatch(self, any_prefilling: bool = True,
+                 tree_sel: Optional[np.ndarray] = None) -> StepHandle:
+        """Run one step. ``any_prefilling`` (host knowledge) selects the AR
+        window width; ``tree_sel`` [B] (tree drafting) holds the scheduler's
+        staged per-slot templates, applied to ``tree_idx`` before the step."""
         variant = "mixed" if (any_prefilling and self.mode == "ar") \
             else "decode"
         st = self.state
+        if tree_sel is not None:
+            st.tree_idx.copy_(torch.from_numpy(
+                np.asarray(tree_sel, np.int64)))
         live = ~(st.done | (st.pf_pos < st.pf_len))
-        a = None
+        a = rank = None
         if self.mode == "ar":
             self.state = self._step_fn(variant)(st)
+        elif self.dec.tree is not None:
+            self.state, a, rank = self._step_fn(variant)(st)
         else:
             self.state, a = self._step_fn(variant)(st)
-        return StepHandle(a=a, live=live, n=self.state.n, gen=self.state.gen,
-                          n_draft=self._n_draft)
+        return StepHandle(a=a, rank=rank, live=live, n=self.state.n,
+                          gen=self.state.gen, n_draft=self._n_draft,
+                          tree_sel=(None if tree_sel is None
+                                    else np.asarray(tree_sel)))
 
     def harvest(self, handle: StepHandle) -> StepResult:
         """Host copies of a step's outputs (waits for the step)."""
         def host(t):
-            return t.cpu().numpy()
-        return StepResult(a=None if handle.a is None else host(handle.a),
+            return None if t is None else t.cpu().numpy()
+        return StepResult(a=host(handle.a), rank=host(handle.rank),
                           live=host(handle.live), n=host(handle.n),
                           gen=host(handle.gen))

@@ -1,10 +1,13 @@
-"""Block-paged KV pool: device pools plus the host-side block allocator.
+"""KV caches: block-paged pools with the host-side block allocator, and
+the contiguous layout's capacity accounting.
 
-Port of the paged half of ``repro.serving.kv_pool`` without the prefix
-cache. Attention KV lives in shared pools of fixed-size blocks
+Port of ``repro.serving.kv_pool`` without the prefix cache. In the paged
+layout attention KV lives in shared pools of fixed-size blocks
 ``[num_blocks, block_size, Hkv, D]`` per layer (stacked layers carry a
 leading repeats axis); each slot owns a block-table row mapping absolute
-position ``p`` to ``(table[p // block_size], p % block_size)``.
+position ``p`` to ``(table[p // block_size], p % block_size)``. The
+contiguous layout (``models.init_caches``) holds one full-length row per
+slot, committed up front; it needs no allocator.
 
 Invariants (as in the JAX package):
 
@@ -62,7 +65,8 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 
 def kv_capacity_bytes(tree) -> int:
-    """Device bytes held by the KV pools."""
+    """Device bytes held by the KV caches (paged pools or contiguous
+    rows)."""
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
@@ -119,6 +123,28 @@ class BlockAllocator:
         self.tables[slot, :] = 0
         self.tables[slot, :nb] = blocks
         self.version += 1
+
+    def grow(self, slot: int, n_tokens: int) -> bool:
+        """Extend a live slot's allocation in place to cover ``n_tokens``
+        (a request switching to a wider tree template needs a larger
+        write window, I3). Appends blocks to the slot's table row; returns
+        False, leaving the allocation untouched, when the free list or the
+        table row cannot cover it. Never shrinks: a narrower template
+        stops reading the extra blocks, which free with the slot."""
+        cur = self.owned.get(slot)
+        if cur is None:
+            raise ValueError(f"grow() on unallocated slot {slot}")
+        nb = self.blocks_needed(n_tokens)
+        if nb <= len(cur):
+            return True
+        extra = nb - len(cur)
+        if nb > self.max_blocks_per_seq or not self.can_allocate(extra):
+            return False
+        blocks = [self.free.pop() for _ in range(extra)]
+        self.tables[slot, len(cur):nb] = blocks
+        cur.extend(blocks)
+        self.version += 1
+        return True
 
     def release(self, slot: int) -> List[int]:
         """Return the slot's blocks and zero its table row (I4)."""

@@ -128,8 +128,9 @@ def test_engine_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="vsd"), dict(kv_layout="contiguous"), dict(kv_dtype="int8"),
-    dict(kv_dtype="fp8"), dict(tree=(2, 2)), dict(prefix_cache=True),
+    dict(mode="vsd"), dict(kv_layout="contiguous", kv_dtype="int8"),
+    dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
+    dict(tree=(2, 2), temperature=0.7), dict(prefix_cache=True),
     dict(tp=2), dict(dp=2), dict(temperature=0.7)])
 def test_engine_config_outside_the_slice_raises(kw):
     with pytest.raises(NotImplementedError):

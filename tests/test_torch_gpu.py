@@ -1,4 +1,4 @@
-"""On-card tests of the PyTorch port's CUDA kernel and serving path.
+"""On-card tests of the PyTorch port's CUDA kernels and serving path.
 
 They need a CUDA card and skip without one. This file imports only torch
 and the port, so it runs where JAX is not installed:
@@ -11,7 +11,9 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_config
+from repro_torch.core.spec_decode import TreeTemplate
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import tree_attention as ta
 from repro_torch.models import forward, init_params
 from repro_torch.serving import kv_pool
 from repro_torch.serving.engine import Engine, EngineConfig
@@ -147,3 +149,194 @@ def test_engine_pard_equals_ar_on_card(cuda):
         out[mode] = {rids[c.rid]: c.tokens for c in comps}
     for i in range(len(prompts)):
         np.testing.assert_array_equal(out["pard"][i], out["ar"][i])
+
+
+# ------------------------------------------------ tree and contiguous kernels
+def _tree_case(dev, b, tq, hq, hkv, d, bs, kv_dtype, q_dtype, seed=0):
+    """Random valid templates per row (Tq <= 32 slots), a window at a
+    random win_start >= 1, kv_len = win_start + Tq plus a ragged tail;
+    block 0 and every slot at or past each row's eff_len poisoned. Returns
+    (paged case, contiguous case) over the same rows."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    anc = np.zeros((b, tq), np.int64)
+    depth = np.zeros((b, tq), np.int64)
+    win_len = np.zeros(b, np.int64)
+    for r in range(b):
+        while True:
+            br = rng.integers(1, 4, size=rng.integers(1, 8))
+            if r == 0 and tq == 32:
+                br = np.ones(31, np.int64)          # bits 30 and 31 in play
+            try:
+                t = TreeTemplate.from_branching(br)
+            except ValueError:
+                continue
+            if t.num_slots <= tq:
+                break
+        ns = t.num_slots
+        anc[r, :ns], depth[r, :ns], win_len[r] = t.anc, t.depth, ns
+    ws = torch.from_numpy(rng.integers(1, 200, size=b))
+    kv_len = ws + tq + torch.from_numpy(rng.integers(0, 3, size=b))
+    eff = torch.minimum(kv_len, ws + torch.from_numpy(win_len))
+    s = int(kv_len.max()) + 5
+    k = torch.randn(b, s, hkv, d, generator=g)
+    v = torch.randn(b, s, hkv, d, generator=g)
+    for r in range(b):
+        k[r, int(eff[r]):], v[r, int(eff[r]):] = 1e4, -1e4
+    mbs = -(-s // bs)
+    nb = 1 + b * mbs
+    tables = (torch.randperm(nb - 1, generator=g) + 1).reshape(b, mbs)
+    kp = torch.full((nb, bs, hkv, d), 1e4)
+    vp = torch.full((nb, bs, hkv, d), -1e4)
+    pad = mbs * bs - s
+    kp[tables.reshape(-1)] = torch.nn.functional.pad(
+        k, (0, 0, 0, 0, 0, pad), value=1e4).reshape(b * mbs, bs, hkv, d)
+    vp[tables.reshape(-1)] = torch.nn.functional.pad(
+        v, (0, 0, 0, 0, 0, pad), value=-1e4).reshape(b * mbs, bs, hkv, d)
+    q = torch.randn(b, tq, hq, d, generator=g)
+    i32 = dict(device=dev, dtype=torch.int32)
+    common = dict(q=q.to(dev, q_dtype), kv_len=kv_len.to(**i32),
+                  q_pos=(ws[:, None] + torch.from_numpy(depth)).to(**i32),
+                  win_start=ws.to(**i32),
+                  anc=torch.from_numpy(anc).to(dev),
+                  win_len=torch.from_numpy(win_len).to(**i32))
+    paged = dict(common, k_pages=kp.to(dev, kv_dtype),
+                 v_pages=vp.to(dev, kv_dtype), block_tables=tables.to(**i32))
+    cont = dict(common, k=k.to(dev, kv_dtype), v=v.to(dev, kv_dtype))
+    return paged, cont
+
+
+@pytest.mark.parametrize("tq,hq,hkv,d,bs", [
+    (31, 32, 8, 128, 64),        # the 8B target's adaptive tree window
+    (9, 32, 8, 128, 64),         # the chain template at K = 8
+    (32, 14, 2, 64, 16),         # G = 7, full 32-slot window
+    (11, 4, 2, 32, 8),           # tiny test models
+])
+@pytest.mark.parametrize("kv_dtype,q_dtype,tol", [
+    (torch.float32, torch.float32, 1e-4),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+])
+def test_tree_kernels_match_plain(cuda, tq, hq, hkv, d, bs, kv_dtype,
+                                  q_dtype, tol):
+    paged, cont = _tree_case(cuda, 4, tq, hq, hkv, d, bs, kv_dtype, q_dtype)
+    for fn, ref, case in ((ta.tree_attention_paged,
+                           ta.tree_attention_paged_ref, paged),
+                          (ta.tree_attention, ta.tree_attention_ref, cont)):
+        name = fn.__name__
+        before = kernels.launches[name]
+        out = fn(**case)
+        torch.cuda.synchronize()
+        assert kernels.launches[name] == before + 1
+        want = ref(**case)
+        assert out.dtype == q_dtype and out.shape == case["q"].shape
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("window,softcap", [(24, 0.0), (0, 30.0), (50, 20.0)])
+def test_tree_kernels_window_softcap(cuda, window, softcap):
+    paged, cont = _tree_case(cuda, 4, 23, 32, 8, 128, 64, torch.float32,
+                             torch.float32, seed=1)
+    for fn, ref, case in ((ta.tree_attention_paged,
+                           ta.tree_attention_paged_ref, paged),
+                          (ta.tree_attention, ta.tree_attention_ref, cont)):
+        out = fn(**case, window=window, softcap=softcap)
+        want = ref(**case, window=window, softcap=softcap)
+        torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("tq,hq,hkv,d", [(9, 32, 8, 128), (16, 32, 8, 64),
+                                         (1, 4, 4, 32), (40, 14, 2, 64)])
+@pytest.mark.parametrize("kv_dtype,q_dtype,tol", [
+    (torch.float32, torch.float32, 1e-4),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+])
+def test_contiguous_decode_matches_plain(cuda, tq, hq, hkv, d, kv_dtype,
+                                         q_dtype, tol):
+    g = torch.Generator(device="cpu").manual_seed(tq)
+    kv_len = torch.tensor([0, 1, 300, 517])
+    s = 520
+    k = torch.randn(4, s, hkv, d, generator=g)
+    v = torch.randn(4, s, hkv, d, generator=g)
+    for r in range(4):                             # past kv_len: poison
+        k[r, int(kv_len[r]):], v[r, int(kv_len[r]):] = 1e4, -1e4
+    q_pos = (kv_len[:, None] - tq + torch.arange(tq)[None]).clamp(min=0)
+    case = dict(q=torch.randn(4, tq, hq, d, generator=g).to(cuda, q_dtype),
+                k=k.to(cuda, kv_dtype), v=v.to(cuda, kv_dtype),
+                kv_len=kv_len.to(cuda, torch.int32),
+                q_pos=q_pos.to(cuda, torch.int32))
+    before = kernels.launches["decode_attention"]
+    out = da.decode_attention(**case)
+    torch.cuda.synchronize()
+    assert kernels.launches["decode_attention"] == before + 1
+    want = da.decode_attention_ref(**case)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    out = da.decode_attention(**case, window=40, softcap=20.0)
+    want = da.decode_attention_ref(**case, window=40, softcap=20.0)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_tree_kernels_reject_what_they_do_not_take(cuda):
+    paged, cont = _tree_case(cuda, 2, 9, 4, 2, 64, 16, torch.float32,
+                             torch.float32)
+    with pytest.raises(ValueError):                 # > 32 window slots
+        q = cont["q"].repeat(1, 4, 1, 1)
+        ta.tree_attention(**dict(cont, q=q, q_pos=cont["q_pos"].repeat(1, 4),
+                                 anc=cont["anc"].repeat(1, 4)))
+    with pytest.raises(TypeError):                  # int64 win_len
+        ta.tree_attention_paged(**dict(paged, win_len=paged["win_len"].long()))
+    with pytest.raises(TypeError):                  # float ancestor masks
+        ta.tree_attention(**dict(cont, anc=cont["anc"].float()))
+    with pytest.raises(ValueError):                 # cache batch != q batch
+        da.decode_attention(cont["q"], cont["k"][:1], cont["v"][:1],
+                            cont["kv_len"], cont["q_pos"])
+    with pytest.raises(NotImplementedError):        # quantized caches
+        ta.tree_attention(**cont, k_scale=cont["kv_len"],
+                          v_scale=cont["kv_len"])
+
+
+def test_tree_and_contiguous_engines_on_card(cuda):
+    """Tiny fp32 engines on the card: tree greedy == AR, a chain == flat
+    K, paged == contiguous, adaptive lossless; every attention layer of
+    every step launches its kernel once."""
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    tp = init_params(tc, 0, cuda, torch.float32)
+    dp = init_params(dc, 1, cuda, torch.float32)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, size=int(n))
+               for n in rng.integers(4, 30, size=5)]
+    base = dict(max_batch=2, max_len=256, kv_block_size=16, kv_dtype="fp32")
+    runs = {
+        "ar": dict(mode="ar", k=4),
+        "flat": dict(k=4),
+        "flat-contig": dict(k=4, kv_layout="contiguous"),
+        "chain": dict(tree=(1, 1, 1, 1)),
+        "tree": dict(tree=(2, 2, 1, 1)),
+        "tree-contig": dict(tree=(2, 2, 1, 1), kv_layout="contiguous"),
+        "adaptive": dict(k=4, adaptive_tree=True, tree_reselect_every=2),
+    }
+    out = {}
+    for name, kw in runs.items():
+        eng = Engine(tp, tc, dp, dc, config=EngineConfig(**base, **kw))
+        rids = {eng.submit(p, 16): i for i, p in enumerate(prompts)}
+        kernels.launches.clear()
+        comps = eng.run()
+        steps = eng.stats["steps"]
+        paged = kw.get("kv_layout", "paged") == "paged"
+        flat = "decode_attention_paged" if paged else "decode_attention"
+        tree = "tree_attention_paged" if paged else "tree_attention"
+        if name == "ar":
+            want = {flat: tc.num_layers * steps}
+        elif eng.bank is None:
+            want = {flat: (tc.num_layers + dc.num_layers) * steps}
+        else:
+            want = {flat: dc.num_layers * steps, tree: tc.num_layers * steps}
+        assert dict(kernels.launches) == want, name
+        out[name] = ({rids[c.rid]: c.tokens for c in comps},
+                     eng.stats["accepted"])
+    for name in runs:
+        for i in range(len(prompts)):
+            np.testing.assert_array_equal(out[name][0][i], out["ar"][0][i])
+    assert out["chain"][1] == out["flat"][1]
+    assert out["flat-contig"][1] == out["flat"][1]
+    assert out["tree-contig"][1] == out["tree"][1]

@@ -29,7 +29,7 @@ from repro_torch.configs import CONFIGS, get_config
 from repro_torch.core.acceptance import greedy_chain_accept
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import forward, init_params, layers, param_shapes
-from repro_torch.models.attention import paged_flat_index, write_cache_paged
+from repro_torch.models.attention import paged_flat_index, write_cache
 from repro_torch.models.config import ModelConfig, layer_plan, scan_plan
 from repro_torch.serving import kv_pool
 
@@ -163,7 +163,7 @@ def test_paged_write_matches_jax():
     got = torch.from_numpy(pages.copy())
     idx = paged_flat_index(torch.from_numpy(tables),
                            torch.from_numpy(pos).long(), 4).reshape(-1)
-    write_cache_paged(got, torch.from_numpy(new), idx)
+    write_cache(got, torch.from_numpy(new), idx)
     # block 0 takes the past-table writes in an unspecified order
     np.testing.assert_array_equal(got.numpy()[1:], want[1:])
 
