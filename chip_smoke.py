@@ -2,15 +2,15 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
   python3 chip_smoke.py [--seed 0] [--requests 8] [--prompt-len 256]
-                        [--max-new 128]
+                        [--max-new 128] [--train-steps 20]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every CUDA kernel of the serving paths, compiled from
-     ``src/repro_torch/csrc`` in parallel (one ``nvcc -Xptxas -v`` each):
-     decode_attention_paged, decode_attention, tree_attention_paged,
-     tree_attention;
+  2. build: every CUDA kernel of the serving and training paths, compiled
+     from ``src/repro_torch/csrc`` in parallel (one ``nvcc -Xptxas -v``
+     each): decode_attention_paged, decode_attention, tree_attention_paged,
+     tree_attention, flash_attention(_bwd), pard_attention(_bwd);
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card (target / draft / tiny head dims 128 / 64 / 32, bf16 and fp32,
      ragged contexts up to 4096, window + softcap, random tree templates
@@ -33,7 +33,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (2,2,1,1,1,1,1,1); each asserts the exact launches of every kernel
      (one per attention layer per step);
   7. AR comparison: the share of PARD tokens equal to AR tokens up to the
-     first divergence (bf16 products of different widths may round apart).
+     first divergence (bf16 products of different widths may round apart);
+  8. training kernels vs plain: flash and pard attention, forward and
+     backward (out, dq, dk, dv through torch.autograd) against their plain
+     versions (D 32 / 64 / 128, G 1 and 4, T off the 64-row tile, window
+     and softcap, COD layouts of the port's pack_batch at K=8, r=0.7,
+     r_min=0.2 with segment-0 padding, and the exact bf16 shapes of the
+     training runs of phase 9; rows that see no key give 0 and take no
+     gradient); then their times at the training shapes beside the bound,
+     the plain versions and SDPA;
+  9. training at full width (llama3.2-1b, 16 layers, random weights from
+     --seed, f32 params and AdamW moments, bf16 activations, the cosine
+     schedule of ``repro_torch.launch.train`` at peak 1e-3, its trainer
+     made by the launcher with ``--dtype bfloat16``): one B=1 step through the
+     kernels and through the plain versions (loss and global grad norm
+     within 2e-2), then ``--train-steps`` AR steps (B=4, N=1024) and PARD
+     steps (B=4, N=512 packed to T=1726) through ``Trainer.fit``, each
+     asserting one forward and one backward launch per layer per step and
+     a finite, falling loss; then one more ``Trainer.step`` cut into
+     forward + loss, backward and AdamW by its CUDA events.
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers and the result line ``{"ok": true, "device": {...}}``.
@@ -58,9 +76,23 @@ REPLACES = {                         # kernel -> the TPU kernel it ports
     "decode_attention": "src/repro/kernels/decode_attention.py:115",
     "tree_attention_paged": "src/repro/kernels/tree_attention.py:200",
     "tree_attention": "src/repro/kernels/tree_attention.py:125",
+    # the TPU kernels have no backward (XLA autodiff of the jnp path): the
+    # backward kernels port the gradient of the same TPU kernel
+    "flash_attention": "src/repro/kernels/flash_attention.py:84",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:84",
+    "pard_attention": "src/repro/kernels/pard_attention.py:73",
+    "pard_attention_bwd": "src/repro/kernels/pard_attention.py:73",
 }
 KERNELS = tuple(REPLACES)
 WIDE = (2, 2, 1, 1, 1, 1, 1, 1)      # the default bank's 31-slot template at K=8
+TRAIN_MODEL = "llama3.2-1b"
+TRAIN_SEQ = {"ar": 1024, "pard": 512}   # N per row; PARD packs 512 to T=1726
+# peak of the launcher's cosine schedule: its default (3e-3) suits the tiny
+# models; llama3.2-1b from random weights spikes at it and ends its 20 AR
+# steps above the first loss, through the plain attention as through the
+# kernels (tools/lr_witness.py)
+TRAIN_LR = 1e-3
+COD = (8, 0.7, 0.2)                  # K, r, r_min of the PARD training cell
 
 
 class SmokeFailure(Exception):
@@ -560,13 +592,14 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.training.optimizer import leaves
 
     tc, dc = get_config(target), get_config(draft)
     t0 = time.perf_counter()
     tp = init_params(tc, args.seed, dev, torch.bfloat16)
     dp = init_params(dc, args.seed + 1, dev, torch.bfloat16)
     _sync(torch, dev)
-    n_params = sum(t.numel() for tree in (tp, dp) for t in _leaves(tree))
+    n_params = sum(t.numel() for tree in (tp, dp) for t in leaves(tree))
     log(f"[engine] {target} + {draft} random bf16 weights "
         f"({n_params / 1e9:.2f}B params) on the card in "
         f"{time.perf_counter() - t0:.1f}s; EngineConfig defaults "
@@ -614,12 +647,405 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
     return main_launches
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+# ---------------------------------------------------------------------------
+# training kernels and training
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = {"flash": ("flash_attention", "flash_attention_bwd"),
+                 "pard": ("pard_attention", "pard_attention_bwd")}
+
+
+def _cod_layout(torch, rng, b, n, extra, dev):
+    """(segment, base) [B, T] int32 of the port's pack_batch at COD, with
+    ``extra`` columns of segment-0 padding past the packed bound."""
+    from repro_torch.core.cod import CodConfig, pack_batch
+    packed = pack_batch(rng.integers(0, 128000, (b, n)), CodConfig(*COD),
+                        128256, seed=int(rng.integers(1 << 30)))
+    pad = torch.zeros(b, extra, dtype=torch.int32)
+    return [torch.cat([torch.from_numpy(packed[f]).to(torch.int32), pad], 1)
+            .to(dev) for f in ("segment", "base")]
+
+
+def train_case(torch, gen, rng, kind, *, b, hq, hkv, d, dtype, t=None, s=None,
+               n=None, extra=0, window=0, softcap=0.0, dev="cuda"):
+    """Inputs of one training-attention call: "flash" (t queries, s keys,
+    causal) or "pard" (a COD layout of b rows of n tokens)."""
+    seg = base = None
+    if kind == "pard":
+        seg, base = _cod_layout(torch, rng, b, n, extra, dev)
+        t = s = seg.shape[1]
+    s = s or t
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    return dict(kind=kind, q=rnd(b, t, hq, d), k=rnd(b, s, hkv, d),
+                v=rnd(b, s, hkv, d), dout=rnd(b, t, hq, d), seg=seg, base=base,
+                window=window, softcap=softcap)
+
+
+def train_attention(c, plain):
+    """The wrapper (or its plain version) of case ``c`` as fn(q, k, v)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pard_attention as pa
+    if c["kind"] == "flash":
+        fn = fa.flash_attention_ref if plain else fa.flash_attention
+        return lambda q, k, v: fn(q, k, v, causal=True, window=c["window"],
+                                  softcap=c["softcap"])
+    fn = pa.pard_attention_ref if plain else pa.pard_attention
+    return lambda q, k, v: fn(q, k, v, c["seg"], c["base"],
+                              softcap=c["softcap"])
+
+
+def fwd_bwd(c, plain):
+    """(out, dq, dk, dv) of case ``c`` through torch.autograd."""
+    q, k, v = (c[n].detach().clone().requires_grad_(True) for n in "qkv")
+    out = train_attention(c, plain)(q, k, v)
+    out.backward(c["dout"])
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def train_correctness_cases(torch):
+    bf, f32 = torch.bfloat16, torch.float32
+    flash = [
+        ("draft width D=64 G=4 T=1000", dict(b=2, t=1000, hq=32, hkv=8, d=64)),
+        ("D=128 G=4 T=333", dict(b=2, t=333, hq=8, hkv=2, d=128)),
+        ("tiny D=32 G=2 T=77", dict(b=3, t=77, hq=2, hkv=1, d=32)),
+        ("D=64 G=1 window 128 T=600", dict(b=2, t=600, hq=4, hkv=4, d=64,
+                                           window=128)),
+        ("D=64 G=4 softcap 30 T=515", dict(b=2, t=515, hq=8, hkv=2, d=64,
+                                           softcap=30.0)),
+        ("rows that see no key: T=300 S=128 window 40",
+         dict(b=2, t=300, s=128, hq=8, hkv=2, d=64, window=40)),
+    ]
+    pard = [
+        ("draft width D=64 G=4 N=512", dict(b=2, n=512, hq=32, hkv=8, d=64,
+                                            extra=21)),
+        ("D=128 G=1 N=200", dict(b=2, n=200, hq=4, hkv=4, d=128, extra=5)),
+        ("tiny D=32 G=2 N=48", dict(b=3, n=48, hq=2, hkv=1, d=32, extra=3)),
+        ("D=64 G=4 softcap 20 N=300", dict(b=2, n=300, hq=8, hkv=2, d=64,
+                                           softcap=20.0, extra=0)),
+    ]
+    # the exact shapes of the training runs of phase 9, in their bf16
+    main = [("flash", "main path AR B=4 T=1023 Hq=32 Hkv=8 D=64",
+             dict(b=4, t=TRAIN_SEQ["ar"] - 1, hq=32, hkv=8, d=64)),
+            ("pard", "main path PARD B=4 N=512 Hq=32 Hkv=8 D=64",
+             dict(b=4, n=TRAIN_SEQ["pard"], hq=32, hkv=8, d=64))]
+    return [(kind, f"{label} {str(dt).split('.')[1]}", dict(kw, dtype=dt))
+            for kind, cases in (("flash", flash), ("pard", pard))
+            for label, kw in cases for dt in (bf, f32)] + [
+        (kind, f"{label} bfloat16", dict(kw, dtype=bf))
+        for kind, label, kw in main]
+
+
+def phase_train_correctness(torch, args, dev="cuda"):
+    """Each training kernel, forward and backward, against its plain
+    version: |kernel - plain| <= tol * max(1, |plain|) element-wise."""
+    import numpy as np
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    rng = np.random.default_rng(args.seed + 11)
+    worst = {n: 0.0 for pair in TRAIN_KERNELS.values() for n in pair}
+    for kind, label, kw in train_correctness_cases(torch):
+        c = train_case(torch, gen, rng, kind, dev=dev, **kw)
+        got = fwd_bwd(c, plain=False)
+        _sync(torch, dev)
+        want = fwd_bwd(c, plain=True)
+        tol = TOL[str(kw["dtype"]).split(".")[1]]
+        errs = {}
+        for part, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                raise SmokeFailure(f"{kind} {part} not finite ({label})")
+            diff = (a.float() - b.float()).abs()
+            scaled = (diff / b.float().abs().clamp(min=1.0)).max().item()
+            errs[part] = diff.max().item()
+            if not scaled <= tol:
+                raise SmokeFailure(f"{kind} {part} disagrees with the plain "
+                                   f"version ({label}): {scaled} > {tol}")
+        # rows that see no key: output 0 and no gradient
+        if kind == "pard":
+            dead, dead_keys = c["seg"] == 0, c["seg"] == 0
+        else:
+            t, s, w = c["q"].shape[1], c["k"].shape[1], c["window"]
+            rows = torch.arange(t, device=c["q"].device)
+            dead = (rows >= s + w - 1 if w and t > s else rows < 0)[None]
+            dead = dead.expand(c["q"].shape[0], -1)
+            dead_keys = None
+        n_dead = int(dead.sum())
+        if any((x[dead] != 0).any() for x in got[:2]) or (
+                dead_keys is not None
+                and any((x[dead_keys] != 0).any() for x in got[2:])):
+            raise SmokeFailure(f"{kind}: rows that see no key are not 0 "
+                               f"({label})")
+        fwd, bwd = TRAIN_KERNELS[kind]
+        worst[fwd] = max(worst[fwd], errs["out"])
+        worst[bwd] = max(worst[bwd], errs["dq"], errs["dk"], errs["dv"])
+        log(f"[train kernel vs plain] {kind} {label}: max_abs_err "
+            + " ".join(f"{p}={e:.3e}" for p, e in errs.items())
+            + f" (check |err| <= {tol:g} * max(1, |plain|)); "
+            f"{n_dead} rows that see no key, all 0")
+    return worst
+
+
+def train_bound_ms(torch, c, backward):
+    """Least time on the card for one call: FLOPs (4 D per allowed (query,
+    key) pair per query head forward, 2.5x that backward) at the bf16
+    peak, vs bytes (q, k, v, out and the log-sum-exp once; backward also
+    dout and dq, dk, dv; the COD metadata) at the memory rate. K and V are
+    counted for k.numel() each; q-sized tensors for q.numel()."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pard_attention as pa
+    q, k = c["q"], c["k"]
+    b, t, hq, d = q.shape
+    if c["kind"] == "flash":
+        pairs = b * int(fa.flash_allowed(t, k.shape[1], window=c["window"],
+                                         device=q.device).sum())
+    else:
+        pairs = int(pa.pard_mask(c["seg"], c["base"], c["seg"], c["base"])
+                    .sum())
+    flops = 4 * d * hq * pairs * (2.5 if backward else 1.0)
+    # forward: q, o and k, v; backward also dout, dq and dk, dv
+    io = (4 if backward else 2) * (q.numel() + k.numel())
+    nbytes = io * q.element_size() + b * hq * t * 4        # + the lse
+    if c["seg"] is not None:
+        nbytes += 2 * c["seg"].numel() * 4
+    t_ops = flops / PEAK_OPS[str(q.dtype).split(".")[1]]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_train_timing(torch, F, args, dev="cuda"):
+    """Kernel, plain and SDPA times, forward and backward, at the training
+    shapes: flash B=4 T=1024 Hq=32 Hkv=8 D=64 causal; pard B=4 N=512
+    (T=1726) at COD; bf16."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pard_attention as pa
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    rng = np.random.default_rng(args.seed + 13)
+    shape = dict(b=4, hq=32, hkv=8, d=64, dtype=torch.bfloat16, dev=dev)
+    rows = {"flash": dict(shape, t=1024), "pard": dict(shape, n=512)}
+    results = {}
+    for kind, kw in rows.items():
+        fwd_name, bwd_name = TRAIN_KERNELS[kind]
+        first = train_case(torch, gen, rng, kind, **kw)
+        per_set = sum(first[n].numel() * first[n].element_size()
+                      for n in ("q", "k", "v", "dout")) * 2
+        sets = [first] + [train_case(torch, gen, rng, kind, **kw) for _ in
+                          range(max(2, math.ceil(COLD_BYTES / per_set)) - 1)]
+        if kind == "flash":
+            def fwd(c):
+                return fa.flash_attention_fwd(c["q"], c["k"], c["v"])
+
+            def bwd(c):
+                return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["o"],
+                                              c["lse"], c["dout"])
+        else:
+            def fwd(c):
+                return pa.pard_attention_fwd(c["q"], c["k"], c["v"], c["seg"],
+                                             c["base"])
+
+            def bwd(c):
+                return pa.pard_attention_bwd(c["q"], c["k"], c["v"], c["seg"],
+                                             c["base"], c["o"], c["lse"],
+                                             c["dout"])
+        for c in sets:
+            c["o"], c["lse"] = fwd(c)
+        ms_f = time_ms(torch, fwd, sets, 20)
+        ms_b = time_ms(torch, bwd, sets, 10)
+
+        def plain_fwd(c):
+            with torch.no_grad():
+                return train_attention(c, plain=True)(c["q"], c["k"], c["v"])
+
+        plain_f = time_ms(torch, plain_fwd, sets[:1], 3)
+
+        def graph(c, fn):
+            q, k, v = (c[n].detach().requires_grad_(True) for n in "qkv")
+            return fn(q, k, v), (q, k, v)
+
+        def grad_of(g):
+            return torch.autograd.grad(g[0], g[1], first["dout"],
+                                       retain_graph=True)
+
+        plain_g = graph(first, train_attention(first, plain=True))
+        plain_b = time_ms(torch, grad_of, [plain_g], 3)
+        del plain_g
+        # library yardstick (the port never calls it): SDPA, GQA, on the
+        # same inputs; the COD mask as an explicit boolean mask
+        if kind == "flash":
+            def lib(q, k, v):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True)
+        else:
+            mask = pa.pard_mask(first["seg"], first["base"], first["seg"],
+                                first["base"])[:, None]
+
+            def lib(q, k, v):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)
+        lib_f = time_ms(torch, lambda c: lib(c["q"], c["k"], c["v"]), sets, 10)
+        lib_g = graph(first, lambda q, k, v: lib(q, k, v).transpose(1, 2))
+        lib_b = time_ms(torch, grad_of, [lib_g], 5)
+        del lib_g
+        for name, ms, plain, libt, backward in (
+                (fwd_name, ms_f, plain_f, lib_f, False),
+                (bwd_name, ms_b, plain_b, lib_b, True)):
+            bnd, by = train_bound_ms(torch, first, backward)
+            log(f"[timing] {name} B=4 T={first['q'].shape[1]} Hq=32 Hkv=8 "
+                f"D=64 bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+                f"{libt:.4f} ms, bound {bnd:.5f} ms ({by}); {len(sets)} "
+                f"input sets")
+            results[name] = dict(ms=ms, plain_ms=plain, library_ms=libt,
+                                 bound_ms=bnd, bound_by=by)
+        del sets, first
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+def _grad_norm(torch, params):
+    from repro_torch.training.optimizer import leaves
+    return math.sqrt(sum(float(p.grad.float().square().sum())
+                         for p in leaves(params)))
+
+
+def compare_plain_step(torch, kernels, tr, params, batch):
+    """Loss and global grad norm of one step through the kernels and
+    through the plain versions on the card (the model's attention module
+    is pointed at the plain versions for the second run only)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pard_attention as pa
+    from repro_torch.models import attention as model_attention
+    from repro_torch.training.optimizer import leaves
+    got = {}
+    tr.remat = True                     # one layer's plain [T, T] scores at a time
+    try:
+        for route in ("kernels", "plain"):
+            if route == "plain":
+                model_attention.flash_attention = fa.flash_attention_ref
+                model_attention.pard_attention = pa.pard_attention_ref
+            for p in leaves(params):
+                p.requires_grad_(True)
+                p.grad = None
+            kernels.launches.clear()
+            loss, _ = tr.loss(params, batch)
+            loss.backward()
+            got[route] = (loss.item(), _grad_norm(torch, params),
+                          dict(kernels.launches))
+    finally:
+        model_attention.flash_attention = fa.flash_attention
+        model_attention.pard_attention = pa.pard_attention
+        tr.remat = False
+        for p in leaves(params):
+            p.grad = None
+    return got
+
+
+def step_parts_ms(torch, tr, params, state, batch):
+    """One more ``Trainer.step`` cut into forward + loss, backward and the
+    AdamW update by its CUDA events (the device timeline, gaps waiting on
+    the host included)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    tr.step(params, state, batch, events=ev)
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def phase_train(torch, kernels, args, dev="cuda"):
+    """llama3.2-1b at full width: a B=1 step through the kernels and the
+    plain versions, then the AR and PARD runs of ``Trainer.fit``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+
+    cfg = get_config(TRAIN_MODEL)
+    corpus = MarkovCorpus(vocab_size=cfg.vocab_size, seed=0, determinism=2.0)
+    launches = {}
+    for kind, n in TRAIN_SEQ.items():
+        fwd_name, bwd_name = TRAIN_KERNELS["flash" if kind == "ar" else "pard"]
+        flags = ["--arch", TRAIN_MODEL, "--steps", str(args.train_steps),
+                 "--batch", "4", "--seq", str(n), "--seed", str(args.seed),
+                 "--lr", str(TRAIN_LR), "--device", dev,
+                 "--dtype", "bfloat16"]
+        if kind == "pard":
+            flags += ["--pard", "--k", str(COD[0]), "--r", str(COD[1]),
+                      "--r-min", str(COD[2])]
+        tr = launch_train.make_trainer(
+            launch_train.build_parser().parse_args(flags), cfg, dev)
+        params = init_params(cfg, args.seed, dev, torch.float32)
+
+        one = tr.make_batch(corpus.sample(np.random.default_rng(args.seed + 5),
+                                          1, n), seed=args.seed)
+        got = compare_plain_step(torch, kernels, tr, params, one)
+        (lk, gk, nk), (lp, gp, np_) = got["kernels"], got["plain"]
+        rel = max(abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
+        log(f"[train {kind}] B=1 N={n} one step on the card: loss kernels "
+            f"{lk:.6f} plain {lp:.6f}; grad norm kernels {gk:.6f} plain "
+            f"{gp:.6f}; max rel diff {rel:.3e} (tol 2e-2); launches kernels "
+            f"{nk} plain {np_}")
+        if not (rel <= 2e-2 and math.isfinite(lk) and math.isfinite(gk)):
+            raise SmokeFailure(f"train {kind}: kernels and plain versions "
+                               f"disagree (rel {rel})")
+        if np_ or not nk.get(fwd_name) or not nk.get(bwd_name):
+            raise SmokeFailure(f"train {kind}: the routes did not take the "
+                               f"intended attention ({nk} / {np_})")
+
+        stream = corpus.batches(4, n, seed=args.seed)
+        _sync(torch, dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        kernels.launches.clear()                  # counts to 0 just before
+        t0 = time.perf_counter()
+        params, state, hist = tr.fit(params, stream, args.train_steps,
+                                     log_every=1, log_fn=None)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        got_launches = dict(kernels.launches)     # just after
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+        steps = len(hist)
+        want = {fwd_name: cfg.num_layers * steps,
+                bwd_name: cfg.num_layers * steps}
+        losses = [h["loss"] for h in hist]
+        walls = [0.0] + [h["wall"] for h in hist]
+        step_ms = np.diff(walls) * 1e3
+        steady = step_ms[1:]
+        tok_s = (hist[-1]["tokens"] - hist[0]["tokens"]) / (
+            hist[-1]["wall"] - hist[0]["wall"])
+        log(f"[train {kind}] {TRAIN_MODEL} full width, B=4 N={n} "
+            f"(T={one['segment'].shape[1] if kind == 'pard' else n - 1}), "
+            f"{steps} steps in {wall:.2f}s; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; step ms p50 {np.percentile(steady, 50):.2f} "
+            f"p95 {np.percentile(steady, 95):.2f} (steps 2-{steps}; step 1 "
+            f"{step_ms[0]:.1f}); trained tokens/s {tok_s:.0f} (steps "
+            f"2-{steps}, {hist[-1]['tokens']} tokens in all); peak_mem "
+            f"{peak / 2**30:.2f}GiB; grad_norm {hist[0]['grad_norm']:.3f} -> "
+            f"{hist[-1]['grad_norm']:.3f}; launches={got_launches} "
+            f"(expected {want})")
+        log(f"[train {kind}] losses {[round(x, 4) for x in losses]}")
+        if dev == "cuda":
+            parts = step_parts_ms(torch, tr, params, state, tr.make_batch(
+                next(stream), seed=args.train_steps))
+            log(f"[train {kind}] one more step on the device timeline: "
+                f"forward + loss {parts[0]:.2f} ms, backward {parts[1]:.2f} "
+                f"ms, AdamW {parts[2]:.2f} ms (sum {sum(parts):.2f} ms)")
+        if got_launches != want:
+            raise SmokeFailure(f"train {kind}: launches {got_launches}, "
+                               f"expected {want}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise SmokeFailure(f"train {kind}: loss not finite and falling "
+                               f"({losses[0]} -> {losses[-1]})")
+        launches.update(got_launches)
+        del params, state, tr
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -628,6 +1054,7 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=128)
+    ap.add_argument("--train-steps", type=int, default=20)
     args = ap.parse_args(argv)
 
     import torch
@@ -654,6 +1081,9 @@ def main(argv=None) -> int:
         timing = phase_timing(torch, F, args)
         phase_reference(torch, args)
         launches = phase_engine(torch, kernels, args)
+        errs.update(phase_train_correctness(torch, args))
+        timing.update(phase_train_timing(torch, F, args))
+        launches.update(phase_train(torch, kernels, args))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,4 @@
-"""Convert the JAX package's params into the port's.
+"""Convert params between the JAX package and the port.
 
 ``params_from_numpy`` takes the JAX params tree with every leaf turned
 into a numpy array (``jax.tree.map(np.asarray, params)``: nested dicts and
@@ -7,6 +7,9 @@ port's tree of tensors. Both packages use the same einsum layouts
 (``wq [d, Hq, hd]``, ``wo [Hq, hd, d]``, ...), so the conversion is a copy.
 Leaves are stored in ``dtype`` except the norm scales, which stay float32:
 bf16 storage equals the JAX code's ``.astype(x.dtype)`` at use.
+``params_to_numpy`` is its inverse: the port's tree with every leaf a
+float32 numpy array (bf16 leaves widen exactly), for checkpoints and for
+handing trained weights back to the JAX package.
 """
 from __future__ import annotations
 
@@ -42,3 +45,13 @@ def _convert(tree, shapes, name, device, dtype):
         raise ValueError(f"param {name!r}: shape {arr.shape} != {shapes}")
     return torch.from_numpy(arr.astype(np.float32)).to(
         device=device, dtype=leaf_dtype(name, dtype))
+
+
+def params_to_numpy(tree):
+    """Port params (nested dicts and lists of tensors) -> the same tree of
+    float32 numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().to("cpu", torch.float32).numpy()

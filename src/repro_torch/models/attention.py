@@ -18,7 +18,10 @@ layer's view of the stacked leaf), so a step never copies a cache.
 
 Every attention call goes through a kernel wrapper: causal windows to
 ``decode_attention_paged`` / ``decode_attention``, tree verify windows
-(``TreeAttnInfo``) to ``tree_attention_paged`` / ``tree_attention``.
+(``TreeAttnInfo``) to ``tree_attention_paged`` / ``tree_attention``. The
+cache-free forward (training) sends a packed COD batch (``PardMaskInfo``)
+to ``pard_attention`` and a causal full sequence to ``flash_attention``;
+both are differentiable and write nothing in place.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ from typing import Optional
 import torch
 
 from ..kernels.decode_attention import decode_attention, decode_attention_paged
+from ..kernels.flash_attention import flash_attention
+from ..kernels.pard_attention import PardMaskInfo, pard_mask  # noqa: F401
+from ..kernels.pard_attention import pard_attention
 from ..kernels.tree_attention import (TreeAttnInfo, anc_int32,  # noqa: F401
                                       tree_allowed, tree_attention,
                                       tree_attention_paged)
@@ -128,10 +134,17 @@ def _proj(x, w):
     return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, tuple(w.shape[1:]))
 
 
-def gqa_apply(params, cfg, x, *, layer_window: int = 0, cache,
-              batch: CacheBatch):
-    """Self attention of the window ``x`` [B, T, d] against the layer's
-    cache ``{"k", "v"}`` (written in place). Returns y."""
+def gqa_apply(params, cfg, x, *, layer_window: int = 0, cache=None,
+              batch: Optional[CacheBatch] = None, positions=None,
+              mask_info: Optional[PardMaskInfo] = None):
+    """Self attention of ``x`` [B, T, d]. Returns y [B, T, d].
+
+    With ``cache`` (``{"k", "v"}``, written in place) the window attends
+    to the layer's cache through ``batch``. Without it the whole sequence
+    attends to itself at RoPE ``positions`` [B, T]: under the COD mask of
+    ``mask_info`` (PARD training), else causally in token order (AR
+    training, cache-free forwards).
+    """
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
@@ -142,31 +155,42 @@ def gqa_apply(params, cfg, x, *, layer_window: int = 0, cache,
     if cfg.qk_norm:
         q = _qk_rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = _qk_rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    rope_pos = positions if cache is None else batch.q_pos
     if cfg.use_rope:
-        q = apply_rope(q, batch.q_pos, cfg.rope_theta)
-        k = apply_rope(k, batch.q_pos, cfg.rope_theta)
+        q = apply_rope(q, rope_pos, cfg.rope_theta)
+        k = apply_rope(k, rope_pos, cfg.rope_theta)
+    q = q.contiguous()
+    kw = dict(softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
+    if cache is None:
+        k, v = k.contiguous(), v.contiguous()
+        if mask_info is not None:
+            out = pard_attention(q, k, v, mask_info.segment, mask_info.base,
+                                 **kw)
+        else:
+            out = flash_attention(q, k, v, causal=True, window=layer_window,
+                                  **kw)
+    else:
+        out = _cached_attend(q, k, v, cache, batch, window=layer_window, **kw)
+    wo = params["wo"].to(x.dtype)                      # [Hq, hd, d]
+    return out.flatten(2) @ wo.flatten(0, 1)
+
+
+def _cached_attend(q, k, v, cache, batch: CacheBatch, **kw):
+    """Write the window's K/V into the cache in place, then attend to it."""
     write_cache(cache["k"], k, batch.write_index)
     write_cache(cache["v"], v, batch.write_index)
-    q = q.contiguous()
-    kw = dict(window=layer_window, softcap=cfg.attn_softcap,
-              scale=cfg.attn_scale or None)
     tr = batch.tree
     if batch.tables is not None:
         if tr is None:
-            out = decode_attention_paged(q, cache["k"], cache["v"],
-                                         batch.tables, batch.kv_len,
-                                         batch.q_pos, **kw)
-        else:
-            out = tree_attention_paged(q, cache["k"], cache["v"],
-                                       batch.tables, batch.kv_len,
-                                       batch.q_pos, tr.win_start, tr.anc,
-                                       win_len=tr.win_len, **kw)
-    elif tr is None:
-        out = decode_attention(q, cache["k"], cache["v"], batch.kv_len,
-                               batch.q_pos, **kw)
-    else:
-        out = tree_attention(q, cache["k"], cache["v"], batch.kv_len,
-                             batch.q_pos, tr.win_start, tr.anc,
-                             win_len=tr.win_len, **kw)
-    wo = params["wo"].to(x.dtype)                      # [Hq, hd, d]
-    return out.flatten(2) @ wo.flatten(0, 1)
+            return decode_attention_paged(q, cache["k"], cache["v"],
+                                          batch.tables, batch.kv_len,
+                                          batch.q_pos, **kw)
+        return tree_attention_paged(q, cache["k"], cache["v"], batch.tables,
+                                    batch.kv_len, batch.q_pos, tr.win_start,
+                                    tr.anc, win_len=tr.win_len, **kw)
+    if tr is None:
+        return decode_attention(q, cache["k"], cache["v"], batch.kv_len,
+                                batch.q_pos, **kw)
+    return tree_attention(q, cache["k"], cache["v"], batch.kv_len,
+                          batch.q_pos, tr.win_start, tr.anc,
+                          win_len=tr.win_len, **kw)

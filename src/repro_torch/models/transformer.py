@@ -10,16 +10,24 @@ leading ``n_repeats`` axis); the layer loop indexes the stacked leaves.
   init_caches(cfg, batch, max_len, dtype, device) -> contiguous KV caches
   forward(params, cfg, tokens, caches=, cache_pos=, block_tables=,
           kv_block_size=, tree_info=)            -> (logits, caches)
+  forward(params, cfg, tokens, positions, mask_info=, remat=)
+                                                 -> (logits, None)
 
-Other architectures (MoE, MLA, SSM, cross-attention, encoders) and the
-cache-free forward come with later slices.
+Without caches the forward is the training path: the whole sequence
+attends to itself (``flash_attention``, or ``pard_attention`` under a COD
+``mask_info``), and autograd differentiates it; ``remat`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``) instead of keeping
+its activations. Other architectures (MoE, MLA, SSM, cross-attention,
+encoders) come with later slices.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .attention import CacheBatch, gqa_apply, init_gqa_cache
@@ -125,6 +133,16 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _unstack(tree, n: int):
+    """The ``n`` per-layer trees of a stacked tree, one ``unbind`` per leaf:
+    its backward writes each stacked gradient once, where ``n`` indexings
+    would each zero-fill a stacked-size gradient for autograd to sum."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(n)]
+    return tree.unbind(0)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda"):
     """Zeroed contiguous KV caches with the params tree's layout: ``prefix``
@@ -150,11 +168,12 @@ def _cache_len(caches) -> int:
     return caches["scan"][0]["k"].shape[2]
 
 
-def _apply_layer(lp, cfg: ModelConfig, spec, x, cache, batch: CacheBatch):
+def _apply_layer(lp, cfg: ModelConfig, spec, x, *, cache=None, batch=None,
+                 positions=None, mask_info=None):
     window = cfg.sliding_window if spec.mixer == ATTN_LOCAL else 0
     h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
     x = x + gqa_apply(lp["mixer"], cfg, h, layer_window=window, cache=cache,
-                      batch=batch)
+                      batch=batch, positions=positions, mask_info=mask_info)
     h = L.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
     return x + L.mlp_apply(lp["mlp"], h, act=cfg.mlp_act)
 
@@ -162,40 +181,54 @@ def _apply_layer(lp, cfg: ModelConfig, spec, x, cache, batch: CacheBatch):
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             positions=None, *, caches=None, cache_pos=None, block_tables=None,
             kv_block_size: int = 0, dtype=torch.bfloat16,
-            last_only: bool = False, tree_info=None):
-    """Run the decoder stack over a window against KV caches.
+            last_only: bool = False, tree_info=None, mask_info=None,
+            remat: bool = False):
+    """Run the decoder stack.
 
-    tokens [B, T]; positions [B, T] (default cache_pos + arange(T));
-    caches (written in place) from ``serving.kv_pool.init_paged_caches``
-    with block_tables [B, MBS] int32, or from ``init_caches`` with
-    block_tables None; cache_pos [B] write offset; tree_info: the verify
-    window's ``TreeAttnInfo`` (tree attention instead of causal).
+    tokens [B, T]. With ``caches`` (written in place), a window against KV
+    caches: from ``serving.kv_pool.init_paged_caches`` with block_tables
+    [B, MBS] int32, or from ``init_caches`` with block_tables None;
+    cache_pos [B] write offset; positions [B, T] (default cache_pos +
+    arange(T)); tree_info: the verify window's ``TreeAttnInfo`` (tree
+    attention instead of causal). Without caches, the training forward:
+    positions [B, T] feed RoPE (default arange(T)); ``mask_info``, a COD
+    ``PardMaskInfo``, replaces the causal mask; ``remat`` recomputes each
+    layer in the backward pass.
     Returns (logits [B, T or 1, padded_vocab], caches).
     """
-    if caches is None:
-        raise NotImplementedError(
-            "the port's forward runs against KV caches; cache-free forwards "
-            "(flash_attention) come with a later slice")
     check_supported(cfg)
     plan = scan_plan(cfg)
     b, t = tokens.shape
-    if positions is None:
-        positions = cache_pos[:, None] + torch.arange(
-            t, device=tokens.device)[None, :]
-    batch = CacheBatch.build(
-        cache_pos, positions, t, block_tables=block_tables,
-        block_size=kv_block_size,
-        max_len=0 if block_tables is not None else _cache_len(caches),
-        tree_info=tree_info)
+    if caches is None:
+        if tree_info is not None or block_tables is not None:
+            raise ValueError("tree_info and block_tables need KV caches")
+        if positions is None:
+            positions = torch.arange(t, device=tokens.device).expand(b, t)
+        layer_kw = [dict(positions=positions, mask_info=mask_info)] * (
+            len(plan.prefix) + plan.n_repeats * len(plan.period))
+    else:
+        if mask_info is not None:
+            raise ValueError("COD masks are for cache-free (training) forwards")
+        if positions is None:
+            positions = cache_pos[:, None] + torch.arange(
+                t, device=tokens.device)[None, :]
+        batch = CacheBatch.build(
+            cache_pos, positions, t, block_tables=block_tables,
+            block_size=kv_block_size,
+            max_len=0 if block_tables is not None else _cache_len(caches),
+            tree_info=tree_info)
+        layer_kw = [dict(cache=c, batch=batch) for c in caches["prefix"]] + [
+            dict(cache=_index(caches["scan"][j], r), batch=batch)
+            for r in range(plan.n_repeats) for j in range(len(plan.period))]
 
+    layers = [(params["prefix"][i], spec) for i, spec in enumerate(plan.prefix)]
+    scan = [_unstack(p, plan.n_repeats) for p in params["scan"]]
+    layers += [(scan[j][r], spec) for r in range(plan.n_repeats)
+               for j, spec in enumerate(plan.period)]
     x = L.embed_apply(params["embed"], tokens, cfg, dtype=dtype)
-    for i, spec in enumerate(plan.prefix):
-        x = _apply_layer(params["prefix"][i], cfg, spec, x,
-                         caches["prefix"][i], batch)
-    for r in range(plan.n_repeats):
-        for j, spec in enumerate(plan.period):
-            x = _apply_layer(_index(params["scan"][j], r), cfg, spec, x,
-                             _index(caches["scan"][j], r), batch)
+    for (lp, spec), kw in zip(layers, layer_kw):
+        run = functools.partial(_apply_layer, lp, cfg, spec, **kw)
+        x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)

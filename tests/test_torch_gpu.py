@@ -340,3 +340,146 @@ def test_tree_and_contiguous_engines_on_card(cuda):
     assert out["chain"][1] == out["flat"][1]
     assert out["flat-contig"][1] == out["flat"][1]
     assert out["tree-contig"][1] == out["tree"][1]
+
+
+# ---------------------------------------------------------------------------
+# training kernels (flash / pard attention, forward and backward)
+# ---------------------------------------------------------------------------
+
+def _fwd_bwd(fn, q, k, v, dout):
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+def _train_inputs(dev, b, t, s, hq, hkv, d, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(*shape, generator=g).to(dev, dtype)
+            for shape in ((b, t, hq, d), (b, s, hkv, d), (b, s, hkv, d),
+                          (b, t, hq, d))]
+
+
+def _assert_grads_close(got, want, tol):
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("b,t,hq,hkv,d,window,softcap", [
+    (2, 300, 8, 2, 64, 0, 0.0),       # G = 4, T not a tile multiple
+    (1, 129, 4, 4, 128, 0, 0.0),
+    (2, 77, 4, 2, 32, 16, 0.0),       # window
+    (1, 200, 4, 1, 64, 0, 30.0),      # softcap
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernels_match_plain(cuda, b, t, hq, hkv, d, window, softcap,
+                                   dtype, tol):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, dout = _train_inputs(cuda, b, t, t, hq, hkv, d, dtype)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    before = (kernels.launches["flash_attention"],
+              kernels.launches["flash_attention_bwd"])
+    got = _fwd_bwd(lambda *x: fa.flash_attention(*x, **kw), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (kernels.launches["flash_attention"],
+            kernels.launches["flash_attention_bwd"]) == (before[0] + 1,
+                                                          before[1] + 1)
+    want = _fwd_bwd(lambda *x: fa.flash_attention_ref(*x, **kw), q, k, v,
+                    dout)
+    _assert_grads_close(got, want, tol)
+
+
+def test_flash_kernel_rows_that_see_no_key(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, dout = _train_inputs(cuda, 1, 160, 64, 4, 2, 64, torch.float32)
+    got = _fwd_bwd(lambda *x: fa.flash_attention(*x, window=16), q, k, v,
+                   dout)
+    dead = torch.arange(160, device=cuda) >= 64 + 16 - 1
+    assert (got[0][:, dead] == 0).all() and (got[1][:, dead] == 0).all()
+    want = _fwd_bwd(lambda *x: fa.flash_attention_ref(*x, window=16), q, k,
+                    v, dout)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,kk,hq,hkv,d,softcap", [
+    (2, 200, 8, 8, 2, 64, 0.0),
+    (1, 130, 4, 4, 4, 32, 0.0),
+    (2, 64, 8, 4, 1, 128, 20.0),
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_pard_kernels_match_plain(cuda, b, n, kk, hq, hkv, d, softcap, dtype,
+                                  tol):
+    from repro_torch.core.cod import CodConfig, pack_batch
+    from repro_torch.kernels import pard_attention as pa
+    rng = np.random.default_rng(n)
+    packed = pack_batch(rng.integers(0, 1000, (b, n)),
+                        CodConfig(kk, 0.7, 0.2), 1000, seed=n)
+    seg = torch.from_numpy(packed["segment"]).to(cuda, torch.int32)
+    base = torch.from_numpy(packed["base"]).to(cuda, torch.int32)
+    t = seg.shape[1]
+    q, k, v, dout = _train_inputs(cuda, b, t, t, hq, hkv, d, dtype)
+    before = (kernels.launches["pard_attention"],
+              kernels.launches["pard_attention_bwd"])
+    got = _fwd_bwd(lambda *x: pa.pard_attention(*x, seg, base,
+                                                softcap=softcap),
+                   q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (kernels.launches["pard_attention"],
+            kernels.launches["pard_attention_bwd"]) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = _fwd_bwd(lambda *x: pa.pard_attention_ref(*x, seg, base,
+                                                     softcap=softcap),
+                    q, k, v, dout)
+    _assert_grads_close(got, want, tol)
+    pad = seg == 0
+    for x in got:                               # padding: output and grads 0
+        assert (x[pad] == 0).all()
+
+
+def test_training_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pard_attention as pa
+    q, k, v, _ = _train_inputs(cuda, 1, 16, 16, 4, 2, 64, torch.float32)
+    with pytest.raises(TypeError):                  # mixed dtypes
+        fa.flash_attention(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError):                 # head dim not built
+        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous())
+    seg = torch.ones(1, 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):                  # int64 metadata
+        pa.pard_attention(q, k, v, seg.long(), seg)
+    with pytest.raises(ValueError):                 # metadata on the host
+        pa.pard_attention(q, k, v, seg.cpu(), seg)
+
+
+def test_trainer_on_card_matches_cpu(cuda):
+    """Three fp32 steps of the tiny draft, AR and PARD, on the card and on
+    the CPU: the same loss histories; every attention layer launches its
+    forward and backward kernel once per step."""
+    from repro_torch.core.cod import CodConfig
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.train_loop import Trainer
+    cfg = get_config("tiny-draft")
+    corpus = MarkovCorpus(vocab_size=cfg.vocab_size, seed=0, determinism=2.0)
+    for kind, fwd in (("ar", "flash_attention"), ("pard", "pard_attention")):
+        hists = []
+        for dev in ("cpu", cuda):
+            tr = Trainer(cfg, AdamW(lr=cosine_schedule(3e-3, 2, 3)),
+                         loss_kind=kind, cod=CodConfig(4, 0.7, 0.2),
+                         device=dev)
+            params = _tree_to(init_params(cfg, 0, "cpu", torch.float32), dev)
+            kernels.launches.clear()
+            _, _, hist = tr.fit(params, corpus.batches(4, 40, seed=1), 3,
+                                log_every=1, log_fn=None)
+            hists.append(hist)
+        assert dict(kernels.launches) == {fwd: 3 * cfg.num_layers,
+                                          fwd + "_bwd": 3 * cfg.num_layers}
+        for a, b in zip(*hists):
+            assert b["loss"] == pytest.approx(a["loss"], rel=1e-4)
+            assert b["tokens"] == a["tokens"]

@@ -231,8 +231,9 @@ def test_paged_forward_matches_jax(backend, variant):
 def test_forward_outside_the_slice_raises():
     cfg = get_config("tiny-target")
     params = init_params(cfg, 0, "cpu", torch.float32)
-    with pytest.raises(NotImplementedError):            # cache-free forward
-        forward(params, cfg, torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(ValueError):          # block tables without caches
+        forward(params, cfg, torch.zeros(1, 4, dtype=torch.long),
+                block_tables=torch.ones(1, 1, dtype=torch.int32))
     moe = ModelConfig(name="m", arch_type="moe", num_layers=1, d_model=32,
                       n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
                       moe_num_experts=4, moe_top_k=2)
