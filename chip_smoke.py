@@ -10,33 +10,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: every CUDA kernel of the serving and training paths, compiled
      from ``src/repro_torch/csrc`` in parallel (one ``nvcc -Xptxas -v``
      each): decode_attention_paged, decode_attention, tree_attention_paged,
-     tree_attention, flash_attention(_bwd), pard_attention(_bwd);
-  3. kernel vs plain: each kernel against its plain PyTorch version on the
-     card (target / draft / tiny head dims 128 / 64 / 32, bf16 and fp32,
-     ragged contexts up to 4096, window + softcap, random tree templates
-     with per-row win_len up to 32 slots; block 0 and every cache slot at
-     or past each row's reach poisoned with +-1e4), max abs error against
-     the stated tolerance;
+     tree_attention, flash_attention(_bwd), pard_attention(_bwd),
+     ssd_chunked;
+  3. kernel vs plain: each attention kernel against its plain PyTorch
+     version on the card (head dims 128 / 64 / 48 / 32, G 1, 2 and 4, bf16
+     and fp32, ragged contexts up to 4096, window + softcap, random tree
+     templates with per-row win_len up to 32 slots; block 0 and every cache
+     slot at or past each row's reach poisoned with +-1e4), max abs error
+     against the stated tolerance; ssd_chunked (y and final state) at the
+     mamba2-130m and tiny shapes, t in {9, 16, 50, 2048}, chunk 16 and 64,
+     a nonzero initial state, bf16 and fp32, and its gather route (dt = 0
+     past a random per-row index) against the token-by-token oracle;
   4. timing: CUDA-event times of each kernel, its plain version and a
-     PyTorch library call (SDPA with a boolean mask over the gathered KV)
-     on the same inputs at the engine's shapes (cold L2: inputs rotate
-     over more than 128 MB), beside the least time the card could take;
+     PyTorch library call (SDPA with a boolean mask over the gathered KV;
+     none for the SSD scan) on the same inputs at the engine's shapes
+     (cold L2: inputs rotate over more than 128 MB), beside the least time
+     the card could take;
   5. reference: tiny-target / tiny-draft in fp32 on the card — forward
      logits against the CPU plain path; greedy tokens of flat PARD, a tree,
      a degenerate chain (1,)*K, on paged and contiguous KV, all equal to
      AR tokens (greedy speculative decoding is lossless), the chain's
-     acceptance equal to flat K's;
+     acceptance equal to flat K's; then tiny-target with the head-dim-48
+     tiny-mid draft, tiny-ssm and a dense hybrid (target = draft): SSM
+     forward logits against the CPU, PARD tokens == AR tokens on both
+     layouts with max_batch 2 and 3 requests (a recycled slot);
   6. engine at full width (llama3.1-8b target, llama3.2-1b draft, random
      bf16 weights from --seed, K=8, max_batch 4): paged PARD (the
      defaults), AR, the paged adaptive tree (default bank, 31-slot window),
      contiguous flat PARD and the contiguous static tree
-     (2,2,1,1,1,1,1,1); each asserts the exact launches of every kernel
-     (one per attention layer per step);
+     (2,2,1,1,1,1,1,1); then mamba2-130m as target (--seed) and draft
+     (--seed + 1): paged PARD, contiguous PARD and paged AR; each asserts
+     the exact launches of every kernel (one per attention layer per step;
+     per Mamba2 layer one ssd_chunked per forward and one per state
+     gather: 4 per layer per PARD step);
   7. AR comparison: the share of PARD tokens equal to AR tokens up to the
      first divergence (bf16 products of different widths may round apart);
   8. training kernels vs plain: flash and pard attention, forward and
      backward (out, dq, dk, dv through torch.autograd) against their plain
-     versions (D 32 / 64 / 128, G 1 and 4, T off the 64-row tile, window
+     versions (D 32 / 48 / 64 / 128, G 1 and 4, T off the 64-row tile, window
      and softcap, COD layouts of the port's pack_batch at K=8, r=0.7,
      r_min=0.2 with segment-0 padding, and the exact bf16 shapes of the
      training runs of phase 9; rows that see no key give 0 and take no
@@ -82,6 +93,7 @@ REPLACES = {                         # kernel -> the TPU kernel it ports
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:84",
     "pard_attention": "src/repro/kernels/pard_attention.py:73",
     "pard_attention_bwd": "src/repro/kernels/pard_attention.py:73",
+    "ssd_chunked": "src/repro/kernels/ssd.py:70",
 }
 KERNELS = tuple(REPLACES)
 WIDE = (2, 2, 1, 1, 1, 1, 1, 1)      # the default bank's 31-slot template at K=8
@@ -93,6 +105,13 @@ TRAIN_SEQ = {"ar": 1024, "pard": 512}   # N per row; PARD packs 512 to T=1726
 # kernels (tools/lr_witness.py)
 TRAIN_LR = 1e-3
 COD = (8, 0.7, 0.2)                  # K, r, r_min of the PARD training cell
+SSM_MODEL = "mamba2-130m"            # the Mamba2 serving cell: target = draft
+# a dense hybrid built in phase 5: attention every second layer, dense MLPs
+HYBRID = dict(name="hybrid-test", arch_type="hybrid", num_layers=4,
+              attn_every=2, d_model=64, n_heads=2, n_kv_heads=1, head_dim=32,
+              d_ff=128, vocab_size=512, ssm_state=16, ssm_headdim=32,
+              ssm_chunk=8, tie_embeddings=True, max_seq_len=1024,
+              source="test")
 
 
 class SmokeFailure(Exception):
@@ -312,6 +331,8 @@ def correctness_cases(torch):
     target = dict(b=4, hq=32, hkv=8, d=128, bs=64)
     draft = dict(b=4, hq=32, hkv=8, d=64, bs=64)
     tiny = dict(b=4, hq=4, hkv=2, d=32, bs=8)
+    mid = dict(b=4, hq=4, hkv=2, d=48, bs=16)        # head dim 48, G 2
+    mid1 = dict(b=4, hq=2, hkv=2, d=48, bs=64)       # tiny-mid: G 1
     ragged = [1, 700, 2049, 4096]
     decode = [
         ("target bf16 ragged", dict(target, tq=9, ctx=ragged, kv_dtype=bf, q_dtype=bf)),
@@ -328,6 +349,14 @@ def correctness_cases(torch):
                                       kv_dtype=f32, q_dtype=bf)),
         ("tiny fp32 D=32", dict(tiny, tq=8, ctx=[8, 30, 95, 200], kv_dtype=f32,
                                 q_dtype=f32)),
+        ("D=48 G=2 fp32 ragged", dict(mid, tq=9, ctx=ragged, kv_dtype=f32,
+                                      q_dtype=f32)),
+        ("D=48 G=2 bf16 ragged", dict(mid, tq=16, ctx=ragged, kv_dtype=bf,
+                                      q_dtype=bf)),
+        ("D=48 G=1 fp32", dict(mid1, tq=16, ctx=[16, 75, 300, 1000],
+                               kv_dtype=f32, q_dtype=f32)),
+        ("D=48 G=1 bf16", dict(mid1, tq=9, ctx=[9, 130, 257, 640],
+                               kv_dtype=bf, q_dtype=bf)),
     ]
     tree_ctx = [1, 700, 2049, 4064]
     tree = [
@@ -345,6 +374,14 @@ def correctness_cases(torch):
                                            softcap=50.0)),
         ("tiny fp32 D=32", dict(tiny, tq=11, ctx=[5, 30, 95, 200], kv_dtype=f32,
                                 q_dtype=f32)),
+        ("D=48 G=2 fp32", dict(mid, tq=23, ctx=tree_ctx, kv_dtype=f32,
+                               q_dtype=f32)),
+        ("D=48 G=2 bf16", dict(mid, tq=32, ctx=tree_ctx, kv_dtype=bf,
+                               q_dtype=bf)),
+        ("D=48 G=1 fp32", dict(mid1, tq=11, ctx=[5, 30, 95, 200],
+                               kv_dtype=f32, q_dtype=f32)),
+        ("D=48 G=1 bf16", dict(mid1, tq=31, ctx=[1, 64, 300, 1000],
+                               kv_dtype=bf, q_dtype=bf)),
     ]
     return {"decode_attention_paged": decode, "decode_attention": decode,
             "tree_attention_paged": tree, "tree_attention": tree}
@@ -395,6 +432,8 @@ def timing_rows(torch, args):
          dict(target, tq=9, ctx=[1024, 2048, 3072, 4096])),
         ("decode_attention_paged", "target verify fp32 @engine ctx",
          dict(target, tq=9, ctx=ctx, kv_dtype=f32, q_dtype=f32)),
+        ("decode_attention_paged", "draft window D=48 @engine ctx",
+         dict(draft, d=48, tq=16, ctx=[c - 9 for c in ctx])),
         ("tree_attention_paged", "tree verify 31 slots @engine ctx",
          dict(target, tq=31, ctx=ctx, template=WIDE)),
         ("tree_attention_paged", "tree verify 31 slots @ctx 1k-4k",
@@ -455,11 +494,11 @@ def phase_timing(torch, F, args):
 
 
 def _tiny_engine_tokens(torch, Engine, EngineConfig, models, prompts, dev,
-                        **kw):
+                        max_batch=3, **kw):
     tc, tp, dc, dp = models
     eng = Engine(tp, tc, dp, dc, config=EngineConfig(
-        max_batch=3, max_len=256, kv_block_size=16, kv_dtype="fp32", **kw),
-        device=dev)
+        max_batch=max_batch, max_len=256, kv_block_size=16, kv_dtype="fp32",
+        **kw), device=dev)
     rids = {eng.submit(p, 24): i for i, p in enumerate(prompts)}
     toks = {rids[c.rid]: c.tokens for c in eng.run()}
     return toks, eng.stats["accepted"], eng.stats["steps"]
@@ -484,7 +523,7 @@ def phase_reference(torch, args, dev="cuda"):
     tables = torch.tensor([[1, 3, 5, 7], [2, 4, 6, 8]], dtype=torch.int32)
     outs = []
     for where, params in (("cpu", tp_cpu), (dev, tp)):
-        pools = kv_pool.init_paged_caches(tc, 9, 8, torch.float32, where)
+        pools = kv_pool.init_paged_caches(tc, 2, 9, 8, torch.float32, where)
         pos = torch.zeros(2, dtype=torch.long, device=where)
         forward(params, tc, toks[:, :20].to(where), caches=pools,
                 cache_pos=pos, block_tables=tables.to(where), kv_block_size=8,
@@ -533,14 +572,30 @@ def phase_reference(torch, args, dev="cuda"):
             raise SmokeFailure(f"{a} and {b} accept differently")
 
 
-def expected_launches(mode, tc, dc, cfg, steps):
+def _layers(cfg):
+    """(attention layers, Mamba2 layers) of a config."""
+    from repro_torch.models.config import SSM, layer_plan
+    ssm = sum(s.mixer == SSM for s in layer_plan(cfg))
+    return cfg.num_layers - ssm, ssm
+
+
+def expected_launches(mode, tc, dc, cfg, steps, prefill_steps):
+    """Launches per kernel of an engine run: one attention launch per
+    attention layer per forward; for Mamba2 layers one ssd_chunked per
+    layer per forward and one more per layer where the forward's states
+    are gathered (every PARD forward, and the AR forwards of the
+    ``prefill_steps``, whose window is widened with pads)."""
     flat = "decode_attention_paged" if cfg.paged else "decode_attention"
     tree = "tree_attention_paged" if cfg.paged else "tree_attention"
+    (ta, ts), (da, ds) = _layers(tc), _layers(dc) if dc else (0, 0)
     if mode == "ar":
-        return {flat: tc.num_layers * steps}
-    if cfg.tree is None:
-        return {flat: (tc.num_layers + dc.num_layers) * steps}
-    return {flat: dc.num_layers * steps, tree: tc.num_layers * steps}
+        want = {flat: ta * steps, "ssd_chunked": ts * (steps + prefill_steps)}
+    elif cfg.tree is None:
+        want = {flat: (ta + da) * steps,
+                "ssd_chunked": 2 * (ts + ds) * steps}
+    else:
+        want = {flat: da * steps, tree: ta * steps}
+    return {k: v for k, v in want.items() if v}
 
 
 def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
@@ -559,7 +614,8 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
     launches = dict(kernels.launches)         # just after
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     steps = eng.stats["steps"]
-    want = expected_launches(cfg.mode, tc, dc, cfg, steps)
+    want = expected_launches(cfg.mode, tc, dc, cfg, steps,
+                             eng.stats["prefill_steps"])
     gen = sum(c.generated for c in comps)
     lat = eng.latency_summary()
     hist = (f" tree_hist={eng.stats['tree_hist'].tolist()} "
@@ -648,6 +704,276 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
 
 
 # ---------------------------------------------------------------------------
+# the Mamba2 SSD scan and Mamba2 serving
+# ---------------------------------------------------------------------------
+
+SSD_SHAPES = {"mamba2-130m": dict(h=24, p=64, n=128),
+              "tiny": dict(h=2, p=32, n=16)}
+
+
+def ssd_case(torch, gen, *, b, t, h, p, n, dtype, chunk, dev="cuda"):
+    """Inputs of one ssd_chunked call: x, B, C in ``dtype``; dt (softplus),
+    A (negative) and a nonzero init_state in f32."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    return dict(x=rnd(b, t, h, p).to(dtype),
+                dt=torch.nn.functional.softplus(rnd(b, t, h) - 1.0),
+                A=-torch.exp(rnd(h) * 0.5), B=rnd(b, t, n).to(dtype),
+                C=rnd(b, t, n).to(dtype), init_state=rnd(b, h, p, n) * 0.1,
+                chunk=chunk)
+
+
+def _ssd_args(c):
+    return c["x"], c["dt"], c["A"], c["B"], c["C"], c["init_state"]
+
+
+def _scaled_err(torch, got, want):
+    """(max |got - want| / max(1, |want|), max |got - want|)."""
+    diff = (got.float() - want.float()).abs()
+    return ((diff / want.float().abs().clamp(min=1.0)).max().item(),
+            diff.max().item())
+
+
+def phase_ssd_correctness(torch, args, dev="cuda"):
+    """ssd_chunked against its plain version on the card (y and final
+    state), and the gather route (dt = 0 past a random per-row index)
+    against the token-by-token oracle's collected states:
+    |kernel - plain| <= tol * max(1, |plain|)."""
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    worst = 0.0
+    for shape, dims in SSD_SHAPES.items():
+        for t in (9, 16, 50, 2048):
+            for chunk in (16, 64):
+                for dtype in (torch.bfloat16, torch.float32):
+                    c = ssd_case(torch, gen, b=4, t=t, dtype=dtype,
+                                 chunk=chunk, dev=dev, **dims)
+                    y, st = ssd.ssd_chunked(*_ssd_args(c), chunk=chunk)
+                    _sync(torch, dev)
+                    wy, ws = ssd.ssd_chunked_ref(
+                        *_ssd_args(c), chunk=ssd.clamp_chunk(chunk, t))
+                    tol = TOL[str(dtype).split(".")[1]]
+                    (sy, ay), (ss, as_) = (_scaled_err(torch, y, wy),
+                                           _scaled_err(torch, st, ws))
+                    label = f"{shape} t={t} chunk={chunk} {dtype}"
+                    log(f"[kernel vs plain] ssd_chunked {label}: max_abs_err "
+                        f"y={ay:.3e} state={as_:.3e} (check |err| <= {tol:g}"
+                        f" * max(1, |plain|))")
+                    if not (torch.isfinite(y).all() and
+                            torch.isfinite(st).all()):
+                        raise SmokeFailure(f"ssd_chunked not finite ({label})")
+                    if not max(sy, ss) <= tol:
+                        raise SmokeFailure(f"ssd_chunked disagrees with its "
+                                           f"plain version ({label}): "
+                                           f"{max(sy, ss)} > {tol}")
+                    worst = max(worst, ay, as_)
+        for t in (9, 16):
+            for dtype in (torch.bfloat16, torch.float32):
+                c = ssd_case(torch, gen, b=4, t=t, dtype=dtype, chunk=64,
+                             dev=dev, **dims)
+                idx = torch.randint(0, t, (4,), generator=gen, device=dev)
+                keep = torch.arange(t, device=dev)[None] <= idx[:, None]
+                x, dt, A, B, C, s0 = _ssd_args(c)
+                _, st = ssd.ssd_chunked(x, dt * keep[..., None], A, B, C, s0,
+                                        chunk=64)
+                _sync(torch, dev)
+                _, states = ssd.ssd_ref(x, dt, A, B, C, s0,
+                                        collect_states=True)
+                want = states[torch.arange(4, device=dev), idx]
+                tol = TOL[str(dtype).split(".")[1]]
+                sg, ag = _scaled_err(torch, st, want)
+                label = f"{shape} t={t} {dtype} idx={idx.tolist()}"
+                log(f"[kernel vs plain] ssd_chunked gather route {label}: "
+                    f"max_abs_err state={ag:.3e} (check |err| <= {tol:g} * "
+                    f"max(1, |plain|))")
+                if not sg <= tol:
+                    raise SmokeFailure(f"ssd_chunked gather route disagrees "
+                                       f"({label}): {sg} > {tol}")
+                worst = max(worst, ag)
+    return {"ssd_chunked": worst}
+
+
+def ssd_bound_ms(c):
+    """Least time on the card for one call: bytes (x, dt, A, B, C and the
+    init state read once, y and the final state written once) at the memory
+    rate, vs the FLOPs these t tokens need (per chunk of l real tokens and
+    head: l(l+1)/2 (N + P) multiply-adds for C B^T and the intra-chunk
+    product over j <= i, 2 l P N for the state term and the state update)
+    at the peak rate of x's type; the larger of the two."""
+    from repro_torch.kernels import ssd
+    x, bm = c["x"], c["B"]
+    b, t, h, p = x.shape
+    n = bm.shape[-1]
+    el = x.element_size()
+    nbytes = (2 * x.numel() * el + 2 * bm.numel() * el + c["dt"].numel() * 4
+              + c["A"].numel() * 4 + 2 * b * h * p * n * 4)
+    chunk = ssd.clamp_chunk(c["chunk"], t)
+    macs = sum(l * (l + 1) // 2 * (n + p) + 2 * l * p * n
+               for l in (min(chunk, t - c0) for c0 in range(0, t, chunk)))
+    t_ops = 2 * macs * b * h / PEAK_OPS[str(x.dtype).split(".")[1]]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+
+
+def phase_ssd_timing(torch, args, dev="cuda"):
+    """ssd_chunked and its plain version at the Mamba2 serving shapes
+    (mamba2-130m, B=4, bf16: the verify / AR window t=9 and the draft
+    window t=16, chunk 16 after the clamp) and one long call (t=2048,
+    chunk 64), beside the bound. No single PyTorch call computes this
+    scan: library none."""
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
+    dims = SSD_SHAPES["mamba2-130m"]
+    result = None
+    for label, t in (("verify window t=9", 9), ("draft window t=16", 16),
+                     ("long scan t=2048", 2048)):
+        first = ssd_case(torch, gen, b=4, t=t, dtype=torch.bfloat16,
+                         chunk=64, dev=dev, **dims)
+        per_set = sum(v.numel() * v.element_size() for v in first.values()
+                      if hasattr(v, "numel"))
+        sets = [first] + [ssd_case(torch, gen, b=4, t=t, dtype=torch.bfloat16,
+                                   chunk=64, dev=dev, **dims)
+                          for _ in range(max(2, math.ceil(COLD_BYTES /
+                                                          per_set)) - 1)]
+        ms = time_ms(torch, lambda c: ssd.ssd_chunked(*_ssd_args(c),
+                                                      chunk=c["chunk"]),
+                     sets, 200 if t < 100 else 20)
+        chunk = ssd.clamp_chunk(64, t)
+        plain = time_ms(torch, lambda c: ssd.ssd_chunked_ref(
+            *_ssd_args(c), chunk=chunk), sets, 20 if t < 100 else 3)
+        bnd, by = ssd_bound_ms(first)
+        log(f"[timing] ssd_chunked {label} B=4 H=24 P=64 N=128 chunk={chunk} "
+            f"bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library none, "
+            f"bound {bnd:.5f} ms ({by}); {len(sets)} input sets")
+        if result is None:          # the main row: the verify window
+            result = dict(ms=ms, plain_ms=plain, library_ms=None,
+                          bound_ms=bnd, bound_by=by)
+        del sets, first
+        torch.cuda.empty_cache()
+    return {"ssd_chunked": result}
+
+
+def phase_reference_ssm(torch, args, dev="cuda"):
+    """fp32 on the card: tiny-target with the head-dim-48 tiny-mid draft,
+    tiny-ssm and the dense hybrid (target = draft) — forward logits of the
+    SSM models against the CPU plain path, and PARD tokens equal to AR
+    tokens on paged and contiguous KV, max_batch 2 with 3 requests (a
+    recycled slot)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serving import kv_pool
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    rng = np.random.default_rng(args.seed + 23)
+    pairs = {"tiny-target + tiny-mid (D=48)": ("tiny-target", "tiny-mid"),
+             "tiny-ssm": ("tiny-ssm", None), "dense hybrid": ("hybrid", None)}
+    for label, (tname, dname) in pairs.items():
+        tc = ModelConfig(**HYBRID) if tname == "hybrid" else get_config(tname)
+        tp_cpu = init_params(tc, args.seed, "cpu", torch.float32)
+        if dname is None:
+            dc, dp_cpu = tc, tp_cpu
+        else:
+            dc = get_config(dname)
+            dp_cpu = init_params(dc, args.seed + 1, "cpu", torch.float32)
+        tp, dp = _tree_to(tp_cpu, dev), _tree_to(dp_cpu, dev)
+        if dname is None:
+            toks = torch.from_numpy(rng.integers(0, tc.vocab_size, (2, 24)))
+            tables = torch.tensor([[1, 3, 5, 7], [2, 4, 6, 8]],
+                                  dtype=torch.int32)
+            outs = []
+            for where, params in (("cpu", tp_cpu), (dev, tp)):
+                caches = kv_pool.init_paged_caches(tc, 2, 9, 8, torch.float32,
+                                                   where)
+                pos = torch.zeros(2, dtype=torch.long, device=where)
+                kw = dict(caches=caches, block_tables=tables.to(where),
+                          kv_block_size=8, dtype=torch.float32)
+                forward(params, tc, toks[:, :15].to(where), cache_pos=pos,
+                        **kw)
+                lg, _ = forward(params, tc, toks[:, 15:].to(where),
+                                cache_pos=pos + 15, **kw)
+                free, _ = forward(params, tc, toks.to(where),
+                                  dtype=torch.float32)
+                outs.append(torch.cat([lg, free], 1).float().cpu())
+            err = (outs[0] - outs[1]).abs().max().item()
+            log(f"[reference] {label} forward (paged windows and cache-free) "
+                f"card vs CPU: max_abs_err={err:.3e} tol=2e-3")
+            if not err <= 2e-3:
+                raise SmokeFailure(f"{label}: card forward disagrees with the "
+                                   f"CPU path: {err}")
+        prompts = [rng.integers(0, tc.vocab_size, size=int(n))
+                   for n in rng.integers(4, 40, size=3)]
+        got = {}
+        for layout in ("paged", "contiguous"):
+            for mode in ("ar", "pard"):
+                got[mode, layout] = _tiny_engine_tokens(
+                    torch, Engine, EngineConfig, (tc, tp, dc, dp), prompts,
+                    dev, max_batch=2, k=4, mode=mode, kv_layout=layout)
+        for (mode, layout), (toks_, acc, steps) in got.items():
+            same = all(np.array_equal(toks_[i], got["ar", "paged"][0][i])
+                       for i in range(len(prompts)))
+            log(f"[reference] {label} fp32 engine on the card, {mode} "
+                f"{layout}: tokens == AR tokens for {len(prompts)} requests "
+                f"(max_batch 2): {same}; accepted={acc} steps={steps}")
+            if not same:
+                raise SmokeFailure(f"{label}: {mode} {layout} tokens differ "
+                                   f"from AR tokens")
+
+
+def phase_ssm_engine(torch, kernels, args, dev="cuda"):
+    """mamba2-130m at full width as target (weights from --seed) and PARD
+    draft (--seed + 1), bf16, K=8, max_batch 4: paged PARD, contiguous
+    PARD and paged AR, each asserting its exact ssd_chunked launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.training.optimizer import leaves
+
+    cfg = get_config(SSM_MODEL)
+    t0 = time.perf_counter()
+    tp = init_params(cfg, args.seed, dev, torch.bfloat16)
+    dp = init_params(cfg, args.seed + 1, dev, torch.bfloat16)
+    _sync(torch, dev)
+    n_params = sum(t.numel() for t in leaves(tp))
+    log(f"[engine ssm] {SSM_MODEL} target + draft, random bf16 weights "
+        f"({n_params / 1e6:.1f}M params each) on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
+               for _ in range(args.requests)]
+    runs = [("ssm pard paged", EngineConfig()),
+            ("ssm pard contiguous", EngineConfig(kv_layout="contiguous")),
+            ("ssm ar paged", EngineConfig(mode="ar"))]
+    tokens, main = {}, None
+    for label, ecfg in runs:
+        warm = Engine(tp, cfg, dp, cfg, config=ecfg, device=dev)
+        warm.submit(prompts[0][:32], 8)
+        warm.run()
+        del warm
+        d_p, d_c = (None, None) if ecfg.mode == "ar" else (dp, cfg)
+        tokens[label], launches = serve(torch, kernels, Engine, ecfg, tp, cfg,
+                                        d_p, d_c, prompts, args.max_new,
+                                        label, dev)
+        if main is None:
+            main = launches.get("ssd_chunked", 0)
+    for label in ("ssm pard paged", "ssm pard contiguous"):
+        shares = []
+        for rid, toks in tokens[label].items():
+            a = toks[args.prompt_len:]
+            b = tokens["ssm ar paged"][rid][args.prompt_len:]
+            diff = np.nonzero(a != b)[0]
+            shares.append((diff[0] if diff.size else len(a)) / len(a))
+        log(f"[ar comparison] {label}: share of tokens equal to AR tokens up "
+            f"to the first divergence: mean {np.mean(shares):.3f} per request "
+            f"{[round(float(x), 3) for x in shares]}")
+    return {"ssd_chunked": main}
+
+
+# ---------------------------------------------------------------------------
 # training kernels and training
 # ---------------------------------------------------------------------------
 
@@ -717,6 +1043,9 @@ def train_correctness_cases(torch):
                                            softcap=30.0)),
         ("rows that see no key: T=300 S=128 window 40",
          dict(b=2, t=300, s=128, hq=8, hkv=2, d=64, window=40)),
+        ("D=48 G=2 T=333", dict(b=2, t=333, hq=4, hkv=2, d=48)),
+        ("D=48 G=1 window 64 softcap 30 T=200",
+         dict(b=2, t=200, hq=2, hkv=2, d=48, window=64, softcap=30.0)),
     ]
     pard = [
         ("draft width D=64 G=4 N=512", dict(b=2, n=512, hq=32, hkv=8, d=64,
@@ -725,6 +1054,8 @@ def train_correctness_cases(torch):
         ("tiny D=32 G=2 N=48", dict(b=3, n=48, hq=2, hkv=1, d=32, extra=3)),
         ("D=64 G=4 softcap 20 N=300", dict(b=2, n=300, hq=8, hkv=2, d=64,
                                            softcap=20.0, extra=0)),
+        ("D=48 G=2 N=200", dict(b=2, n=200, hq=4, hkv=2, d=48, extra=7)),
+        ("D=48 G=1 N=96", dict(b=2, n=96, hq=2, hkv=2, d=48, extra=0)),
     ]
     # the exact shapes of the training runs of phase 9, in their bf16
     main = [("flash", "main path AR B=4 T=1023 Hq=32 Hkv=8 D=64",
@@ -817,16 +1148,18 @@ def train_bound_ms(torch, c, backward):
 def phase_train_timing(torch, F, args, dev="cuda"):
     """Kernel, plain and SDPA times, forward and backward, at the training
     shapes: flash B=4 T=1024 Hq=32 Hkv=8 D=64 causal; pard B=4 N=512
-    (T=1726) at COD; bf16."""
+    (T=1726) at COD; bf16; then flash at head dim 48 beside its D=64 row
+    (not the kernels' main rows)."""
     import numpy as np
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pard_attention as pa
     gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
     rng = np.random.default_rng(args.seed + 13)
     shape = dict(b=4, hq=32, hkv=8, d=64, dtype=torch.bfloat16, dev=dev)
-    rows = {"flash": dict(shape, t=1024), "pard": dict(shape, n=512)}
+    rows = [("flash", dict(shape, t=1024)), ("pard", dict(shape, n=512)),
+            ("flash", dict(shape, t=1024, d=48))]
     results = {}
-    for kind, kw in rows.items():
+    for kind, kw in rows:
         fwd_name, bwd_name = TRAIN_KERNELS[kind]
         first = train_case(torch, gen, rng, kind, **kw)
         per_set = sum(first[n].numel() * first[n].element_size()
@@ -895,11 +1228,12 @@ def phase_train_timing(torch, F, args, dev="cuda"):
                 (bwd_name, ms_b, plain_b, lib_b, True)):
             bnd, by = train_bound_ms(torch, first, backward)
             log(f"[timing] {name} B=4 T={first['q'].shape[1]} Hq=32 Hkv=8 "
-                f"D=64 bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-                f"{libt:.4f} ms, bound {bnd:.5f} ms ({by}); {len(sets)} "
+                f"D={kw['d']} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"sdpa {libt:.4f} ms, bound {bnd:.5f} ms ({by}); {len(sets)} "
                 f"input sets")
-            results[name] = dict(ms=ms, plain_ms=plain, library_ms=libt,
-                                 bound_ms=bnd, bound_by=by)
+            results.setdefault(name, dict(ms=ms, plain_ms=plain,
+                                          library_ms=libt, bound_ms=bnd,
+                                          bound_by=by))
         del sets, first
         if dev == "cuda":
             torch.cuda.empty_cache()
@@ -1078,9 +1412,13 @@ def main(argv=None) -> int:
     try:
         phase_build(build)
         errs = phase_correctness(torch, args)
+        errs.update(phase_ssd_correctness(torch, args))
         timing = phase_timing(torch, F, args)
+        timing.update(phase_ssd_timing(torch, args))
         phase_reference(torch, args)
+        phase_reference_ssm(torch, args)
         launches = phase_engine(torch, kernels, args)
+        launches.update(phase_ssm_engine(torch, kernels, args))
         errs.update(phase_train_correctness(torch, args))
         timing.update(phase_train_timing(torch, F, args))
         launches.update(phase_train(torch, kernels, args))

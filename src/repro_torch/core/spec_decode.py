@@ -26,8 +26,13 @@ or contiguous KV. A step advances a ``DecodeState``:
     positions.
 
 Greedy verification is exactly lossless against AR decoding, flat or
-tree. Sampling, VSD and the uniform-batch ``generate_*`` paths come with
-later slices.
+tree. Mamba2 (SSM) layers cannot roll back positionally: every forward of
+an SSM model over a window with slots past what the row keeps (the draft's
+mask chain, the verify window's rejected drafts, pads of a short prompt
+chunk or of the AR window) collects its Mamba2 records (``collect_ssm``)
+and ``gather_ssm_states`` then sets each row's state to the one after its last
+kept token. Sampling, VSD and the uniform-batch ``generate_*`` paths come
+with later slices.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from ..models import forward
 from ..models.attention import (TreeAttnInfo, contiguous_flat_index,
                                 paged_flat_index)
 from ..models.config import SSM, ModelConfig, scan_plan
+from ..models.ssm import gather_state
 from .acceptance import (greedy_chain_accept, greedy_tree_accept_rows,
                          tree_child_map)
 
@@ -135,6 +141,18 @@ def _topk_indices(logits, k: int):
 def _has_ssm(cfg: ModelConfig) -> bool:
     plan = scan_plan(cfg)
     return any(s.mixer == SSM for s in plan.prefix + plan.period)
+
+
+def gather_ssm_states(records, idx) -> None:
+    """Set the Mamba2 state of every record of a ``collect_ssm`` forward
+    to the state after ``idx[b] + 1`` tokens of the window (row b's last
+    kept slot), in place in the caches. Each layer costs one
+    ``ssd_chunked`` from its incoming state with dt = 0 past ``idx[b]``."""
+    if not records:
+        return
+    idx = idx.long().clamp(0, records[0]["dt"].shape[1] - 1)
+    for record in records:
+        gather_state(record, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +402,10 @@ class SpecDecoder:
                     "tree verification relies on positional KV rollback; "
                     "an SSM/hybrid target cannot roll back a packed tree "
                     "window")
+            if draft_cfg is not None and _has_ssm(draft_cfg):
+                raise NotImplementedError(
+                    "tree drafting with an SSM/hybrid draft is not ported "
+                    "yet")
             k = tree.max_depth
         self.tree: Optional[TemplateBank] = tree
         self.k = k
@@ -430,19 +452,25 @@ class SpecDecoder:
         return min(self.row_slack(i) for i in range(len(self.tree)))
 
     def _forward(self, params, cfg, tokens, caches, cache_pos, tables,
-                 positions=None, tree_info=None):
+                 positions=None, tree_info=None, records=None):
+        """One forward over a window. Given a ``records`` list, Mamba2
+        layers leave their states and append their records for
+        ``gather_ssm_states``."""
         return forward(params, cfg, tokens, positions, caches=caches,
                        cache_pos=cache_pos, block_tables=tables,
                        kv_block_size=self.kv_block_size,
                        dtype=params["embed"]["embedding"].dtype,
-                       tree_info=tree_info)
+                       tree_info=tree_info, collect_ssm=records)
 
     # ----------------------------------------------------------------- AR
     def _build_ar_step(self, chunked: bool = False):
         """One greedy AR step (the engine's mode="ar"). ``chunked=True``
         widens the window to ``prefill_chunk`` slots so prefilling rows
         consume prompt chunks in the same forward; decoding rows carry
-        their last token at slot 0 plus pads (re-covered next step)."""
+        their last token at slot 0 plus pads (re-covered next step). A
+        Mamba2 target keeps the state after slot 0 (decoding rows) or after
+        the chunk's last real token: unlike the JAX engine's AR step, the
+        pads never reach the recurrent state."""
         w = self.prefill_chunk if chunked else 1
 
         def step(state: DecodeState) -> DecodeState:
@@ -451,6 +479,7 @@ class SpecDecoder:
             cp = n - 1
             pf_pos = state.pf_pos
             frozen = done
+            records = ssm_idx = None
             if chunked:
                 prefilling, pf = _phase(state)
                 cl = torch.minimum(torch.full_like(pf, w), state.pf_len - pf)
@@ -460,8 +489,11 @@ class SpecDecoder:
                 cp = torch.where(prefilling, pf, cp)
                 frozen = done | prefilling
                 pf_pos = torch.where(prefilling, pf + cl, pf)
+                records, ssm_idx = [], torch.where(prefilling, cl - 1, 0)
             logits, tcache = self._forward(self.tp, self.tc, toks,
-                                           state.tcache, cp, state.tables)
+                                           state.tcache, cp, state.tables,
+                                           records=records)
+            gather_ssm_states(records, ssm_idx)
             nxt = logits[:, 0].argmax(dim=-1)
             gen2 = _row_write(gen, nxt[:, None], n)
             return dataclasses.replace(
@@ -473,19 +505,24 @@ class SpecDecoder:
     def _pard_depth_logits(self, gen, n, m, dcache, tables, pfinfo=None):
         """ONE PARD draft forward (Eq. 7): proposal logits for depths 1..K.
         Slot A-1 (the last real token) proposes depth 1, the K-1 mask
-        slots the rest. Prefilling rows (``pfinfo = (prefilling, pf, cl)``)
-        feed a prompt chunk instead; their proposals are never committed.
-        Returns (lg [B, K, V], draft caches)."""
+        slots the rest; a Mamba2 draft keeps the state after slot A-1.
+        Prefilling rows (``pfinfo = (prefilling, pf, cl)``) feed a prompt
+        chunk instead (state after its last real token); their proposals
+        are never committed. Returns (lg [B, K, V], draft caches)."""
         k = self.k
         tok = _draft_window(gen, n, m, k, self.dc.mask_token_id)
         pos = m
+        ssm_idx = n - m - 1
         if pfinfo is not None:
             prefilling, pf, cl = pfinfo
             tok = torch.where(prefilling[:, None],
                               _chunk_window(gen, pf, cl, 2 * k), tok)
             pos = torch.where(prefilling, pf, pos)
+            ssm_idx = torch.where(prefilling, cl - 1, ssm_idx)
+        records = []
         logits, dcache = self._forward(self.dp, self.dc, tok, dcache, pos,
-                                       tables)
+                                       tables, records=records)
+        gather_ssm_states(records, ssm_idx)
         sl = ((n - m - 1)[:, None] + _arange(k, gen)[None, :]).clamp(0, 2 * k - 1)
         lg = logits.gather(1, sl[:, :, None].expand(-1, -1, logits.shape[-1]))
         return lg, dcache
@@ -518,9 +555,14 @@ class SpecDecoder:
             vin = torch.where(prefilling[:, None],
                               _chunk_window(gen, pf, cl, k + 1), vin)
             vpos = torch.where(prefilling, pf, n - 1)
+            records = []
             logits, tcache = self._forward(self.tp, self.tc, vin,
-                                           state.tcache, vpos, tables)
+                                           state.tcache, vpos, tables,
+                                           records=records)
             a, _, commit = greedy_chain_accept(logits, props)
+            # a Mamba2 target keeps the state after the last accepted draft
+            # (slot a), a prefilling row after its chunk's last real token
+            gather_ssm_states(records, torch.where(prefilling, cl - 1, a))
 
             # frozen rows commit nothing: done rows stay done, prefilling
             # rows consumed a prompt chunk instead of a verify window

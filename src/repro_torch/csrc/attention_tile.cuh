@@ -37,6 +37,12 @@
 // q_pos (a node at depth 8 in slot 30 has q_pos = root + 8 but its KV at
 // win_start + 30). Arithmetic is f32 FMA on the CUDA cores; tensor cores,
 // split-KV for small B * Hkv, TMA and wgmma are left for later work.
+//
+// Head dims: 32, 48, 64 and 128. A head dim that is not a multiple of the
+// warp's 32 lanes (48) is padded inside the tile to the next multiple (64):
+// q, K and V are staged with zero columns D .. DP - 1 in shared memory,
+// scores sum over the D real columns only, the online softmax is unchanged,
+// and only columns 0 .. D - 1 of the output are stored.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -132,18 +138,24 @@ struct Args {
   float softcap;
 };
 
+// the head dim padded to whole warps: lane l owns columns l, l + 32, ...
+template <int D>
+__host__ __device__ constexpr int padded_dim() { return (D + 31) / 32 * 32; }
+
 template <int D>
 constexpr size_t smem_bytes() {
+  constexpr int DP = padded_dim<D>();
   // q tile, K chunk (rows padded by one float against bank conflicts),
   // V chunk, probabilities, per-row query positions and ancestor masks
-  return sizeof(float) * (kRows * D + kKeys * (D + 1) + kKeys * D + kRows * kKeys)
+  return sizeof(float) * (kRows * DP + kKeys * (DP + 1) + kKeys * DP + kRows * kKeys)
          + sizeof(int) * 2 * kRows;
 }
 
 template <typename QT, typename KT, int D, class KV, bool kTree>
 __global__ void __launch_bounds__(kThreads) tile_kernel(Args a, KV kv) {
-  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
-  constexpr int DC = D / 32;  // output columns per lane
+  constexpr int DP = padded_dim<D>();
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int DC = DP / 32;  // output columns per lane
   const QT* __restrict__ q = static_cast<const QT*>(a.q);
   const KT* __restrict__ kp = static_cast<const KT*>(a.k);
   const KT* __restrict__ vp = static_cast<const KT*>(a.v);
@@ -159,21 +171,22 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(Args a, KV kv) {
   const int warp = tid >> 5;
 
   extern __shared__ float smem[];
-  float* qs = smem;                      // [kRows][D]
-  float* ks = qs + kRows * D;            // [kKeys][D + 1]
-  float* vs = ks + kKeys * (D + 1);      // [kKeys][D]
-  float* ps = vs + kKeys * D;            // [kRows][kKeys]
+  float* qs = smem;                      // [kRows][DP]
+  float* ks = qs + kRows * DP;           // [kKeys][DP + 1]
+  float* vs = ks + kKeys * (DP + 1);     // [kKeys][DP]
+  float* ps = vs + kKeys * DP;           // [kRows][kKeys]
   int* qp_s = reinterpret_cast<int*>(ps + kRows * kKeys);          // [kRows]
   uint32_t* anc_s = reinterpret_cast<uint32_t*>(qp_s + kRows);     // [kRows]
 
-  // stage the tile's query rows; row r = (i, gg) reads q[b, i, h*g + gg]
+  // stage the tile's query rows; row r = (i, gg) reads q[b, i, h*g + gg];
+  // padding columns D .. DP - 1 are zero
   constexpr int QV = Vec<QT>::N;
-  for (int idx = tid; idx < kRows * (D / QV); idx += kThreads) {
-    const int r = idx / (D / QV);
-    const int c = (idx % (D / QV)) * QV;
+  for (int idx = tid; idx < kRows * (DP / QV); idx += kThreads) {
+    const int r = idx / (DP / QV);
+    const int c = (idx % (DP / QV)) * QV;
     const int row = r0 + r;
     float t[QV];
-    if (row < rows) {
+    if (row < rows && c < D) {
       const int i = row / g, gg = row % g;
       Vec<QT>::load(q + ((static_cast<size_t>(b) * tq + i) * hq + h * g + gg) * D + c, t);
     } else {
@@ -181,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(Args a, KV kv) {
       for (int e = 0; e < QV; ++e) t[e] = 0.f;
     }
 #pragma unroll
-    for (int e = 0; e < QV; ++e) qs[r * D + c + e] = t[e];
+    for (int e = 0; e < QV; ++e) qs[r * DP + c + e] = t[e];
   }
   // rows past the tile's end are never stored; the causal mask hides every
   // key from them (q_pos -1), the tree mask leaves them only context
@@ -227,12 +240,12 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(Args a, KV kv) {
   constexpr int KVN = Vec<KT>::N;
   for (int c0 = lo; c0 < hi; c0 += kKeys) {
     // stage keys c0 .. c0 + kKeys - 1
-    for (int idx = tid; idx < kKeys * (D / KVN); idx += kThreads) {
-      const int j = idx / (D / KVN);
-      const int c = (idx % (D / KVN)) * KVN;
+    for (int idx = tid; idx < kKeys * (DP / KVN); idx += kThreads) {
+      const int j = idx / (DP / KVN);
+      const int c = (idx % (DP / KVN)) * KVN;
       const int p = c0 + j;
       float kt[KVN], vt[KVN];
-      if (p < hi) {
+      if (p < hi && c < D) {
         const size_t off = kv.offset(b, p, h, hkv, D) + c;
         Vec<KT>::load(kp + off, kt);
         Vec<KT>::load(vp + off, vt);
@@ -242,23 +255,24 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(Args a, KV kv) {
       }
 #pragma unroll
       for (int e = 0; e < KVN; ++e) {
-        ks[j * (D + 1) + c + e] = kt[e];
-        vs[j * D + c + e] = vt[e];
+        ks[j * (DP + 1) + c + e] = kt[e];
+        vs[j * DP + c + e] = vt[e];
       }
     }
     __syncthreads();
 
-    // scores: warp w owns rows w, w + 8, ...; lane owns keys lane, lane + 32
+    // scores over the D real columns: warp w owns rows w, w + 8, ...; lane
+    // owns keys lane, lane + 32
     float s[kRowsPerWarp][2];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) s[i][0] = s[i][1] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      const float k0 = ks[lane * (D + 1) + d];
-      const float k1 = ks[(lane + 32) * (D + 1) + d];
+      const float k0 = ks[lane * (DP + 1) + d];
+      const float k1 = ks[(lane + 32) * (DP + 1) + d];
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float qv = qs[(warp + kWarps * i) * D + d];
+        const float qv = qs[(warp + kWarps * i) * DP + d];
         s[i][0] = fmaf(qv, k0, s[i][0]);
         s[i][1] = fmaf(qv, k1, s[i][1]);
       }
@@ -306,7 +320,7 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(Args a, KV kv) {
     for (int j = 0; j < kKeys; ++j) {
       float vv[DC];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = vs[j * D + lane + 32 * c];
+      for (int c = 0; c < DC; ++c) vv[c] = vs[j * DP + lane + 32 * c];
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         const float pp = ps[(warp + kWarps * i) * kKeys + j];
@@ -325,7 +339,8 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(Args a, KV kv) {
     const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
     QT* dst = out + ((static_cast<size_t>(b) * tq + qi) * hq + h * g + gg) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) Vec<QT>::store(dst + lane + 32 * c, acc[i][c] * inv);
+    for (int c = 0; c < DC; ++c)
+      if (lane + 32 * c < D) Vec<QT>::store(dst + lane + 32 * c, acc[i][c] * inv);
   }
 }
 
@@ -345,6 +360,7 @@ cudaError_t launch(const Args& a, const KV& kv, int b, cudaStream_t stream) {
 template <typename QT, typename KT, class KV, bool kTree>
 cudaError_t launch_d(int d, const Args& a, const KV& kv, int b, cudaStream_t stream) {
   if (d == 32) return launch<QT, KT, 32, KV, kTree>(a, kv, b, stream);
+  if (d == 48) return launch<QT, KT, 48, KV, kTree>(a, kv, b, stream);
   if (d == 64) return launch<QT, KT, 64, KV, kTree>(a, kv, b, stream);
   if (d == 128) return launch<QT, KT, 128, KV, kTree>(a, kv, b, stream);
   return cudaErrorInvalidValue;

@@ -46,6 +46,12 @@
 //   P = exp(s - lse), dS = P * (dP - Δ) with dP = dO V^T; softcap's
 //   backward multiplies dS by 1 - tanh^2(s_raw / c); dq = scale dS K,
 //   dk = scale dS^T Q, dv = P^T dO.
+//
+// Head dims: 32, 48, 64 and 128. A head dim that is not a multiple of the
+// warp's 32 lanes (48) is padded inside every tile to the next multiple
+// (DP = 64, attn::padded_dim): rows are staged with zero columns D .. DP - 1
+// in shared memory, dot products run over the D real columns, and only
+// columns 0 .. D - 1 of o, dq, dk and dv are stored.
 #pragma once
 
 #include "attention_tile.cuh"  // attn::Vec, attn::warp_max, attn::warp_sum
@@ -121,17 +127,19 @@ struct Args {
 };
 
 // rows r0 .. r0 + kTile - 1 of one head of a [B, n, heads, D] tensor into
-// shared f32 [kTile][LD]; rows past n are zero
+// shared f32 [kTile][LD], columns padded to DP; rows past n and padding
+// columns D .. DP - 1 are zero
 template <typename T, int D, int LD>
 __device__ __forceinline__ void stage(float* dst, const T* src, int b, int r0, int n,
                                       int h, int heads) {
   constexpr int V = attn::Vec<T>::N;
-  for (int idx = threadIdx.x; idx < kTile * (D / V); idx += kThreads) {
-    const int r = idx / (D / V);
-    const int c = (idx % (D / V)) * V;
+  constexpr int DP = attn::padded_dim<D>();
+  for (int idx = threadIdx.x; idx < kTile * (DP / V); idx += kThreads) {
+    const int r = idx / (DP / V);
+    const int c = (idx % (DP / V)) * V;
     const int row = r0 + r;
     float x[V];
-    if (row < n) {
+    if (row < n && c < D) {
       attn::Vec<T>::load(src + ((static_cast<size_t>(b) * n + row) * heads + h) * D + c, x);
     } else {
 #pragma unroll
@@ -182,13 +190,15 @@ __device__ __forceinline__ float score(float dot, float scale, float cap, float&
 
 template <int D>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (kTile * D + kTile * (D + 1) + kTile * D + kTile * kTile) +
+  constexpr int DP = attn::padded_dim<D>();
+  return sizeof(float) * (kTile * DP + kTile * (DP + 1) + kTile * DP + kTile * kTile) +
          sizeof(int2) * 2 * kTile;
 }
 
 template <typename T, int D, class M>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a, M mask) {
-  constexpr int DC = D / 32;  // output columns per lane
+  constexpr int DP = attn::padded_dim<D>();
+  constexpr int DC = DP / 32;  // output columns per lane
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * kTile;
@@ -197,14 +207,14 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a, M mask) {
   const int warp = threadIdx.x >> 5;
 
   extern __shared__ float smem[];
-  float* qs = smem;                       // [kTile][D]
-  float* ks = qs + kTile * D;             // [kTile][D + 1]
-  float* vs = ks + kTile * (D + 1);       // [kTile][D]
-  float* ps = vs + kTile * D;             // [kTile][kTile]
+  float* qs = smem;                       // [kTile][DP]
+  float* ks = qs + kTile * DP;            // [kTile][DP + 1]
+  float* vs = ks + kTile * (DP + 1);      // [kTile][DP]
+  float* ps = vs + kTile * DP;            // [kTile][kTile]
   int2* qm = reinterpret_cast<int2*>(ps + kTile * kTile);
   int2* km = qm + kTile;
 
-  stage<T, D, D>(qs, static_cast<const T*>(a.q), b, q0, a.t, h, a.hq);
+  stage<T, D, DP>(qs, static_cast<const T*>(a.q), b, q0, a.t, h, a.hq);
   stage_meta(qm, mask, b, q0, a.t);
 
   float acc[kRowsPerWarp][DC];
@@ -221,8 +231,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a, M mask) {
   mask.keys(q0, min(q0 + kTile, a.t), a.s, lo, hi);
   for (int c0 = lo; c0 < hi; c0 += kTile) {
     __syncthreads();  // the previous chunk's reads are done
-    stage<T, D, D + 1>(ks, static_cast<const T*>(a.k), b, c0, a.s, hk, a.hkv);
-    stage<T, D, D>(vs, static_cast<const T*>(a.v), b, c0, a.s, hk, a.hkv);
+    stage<T, D, DP + 1>(ks, static_cast<const T*>(a.k), b, c0, a.s, hk, a.hkv);
+    stage<T, D, DP>(vs, static_cast<const T*>(a.v), b, c0, a.s, hk, a.hkv);
     stage_meta(km, mask, b, c0, a.s);
     __syncthreads();
     if (!any_allowed(mask, qm, km)) continue;
@@ -233,11 +243,11 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a, M mask) {
     for (int i = 0; i < kRowsPerWarp; ++i) sc[i][0] = sc[i][1] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      const float k0 = ks[lane * (D + 1) + d];
-      const float k1 = ks[(lane + 32) * (D + 1) + d];
+      const float k0 = ks[lane * (DP + 1) + d];
+      const float k1 = ks[(lane + 32) * (DP + 1) + d];
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float qv = qs[(warp + kWarps * i) * D + d];
+        const float qv = qs[(warp + kWarps * i) * DP + d];
         sc[i][0] = fmaf(qv, k0, sc[i][0]);
         sc[i][1] = fmaf(qv, k1, sc[i][1]);
       }
@@ -272,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a, M mask) {
     for (int j = 0; j < kTile; ++j) {
       float vv[DC];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = vs[j * D + lane + 32 * c];
+      for (int c = 0; c < DC; ++c) vv[c] = vs[j * DP + lane + 32 * c];
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         const float pp = ps[(warp + kWarps * i) * kTile + j];
@@ -291,7 +301,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a, M mask) {
     const float inv = seen ? 1.f / l_run[i] : 1.f;
     T* dst = out + ((static_cast<size_t>(b) * a.t + row) * a.hq + h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) attn::Vec<T>::store(dst + lane + 32 * c, acc[i][c] * inv);
+    for (int c = 0; c < DC; ++c)
+      if (lane + 32 * c < D) attn::Vec<T>::store(dst + lane + 32 * c, acc[i][c] * inv);
     if (lane == 0)
       a.lse[(static_cast<size_t>(b) * a.hq + h) * a.t + row] =
           seen ? m_run[i] + logf(l_run[i]) : 0.f;
@@ -313,9 +324,9 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(Args a) {
   const T* g = static_cast<const T*>(a.dout) + row * D;
   float sum = 0.f;
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
+  for (int c = 0; c < attn::padded_dim<D>() / 32; ++c) {
     const int d = lane + 32 * c;
-    sum = fmaf(to_f(o[d]), to_f(g[d]), sum);
+    if (d < D) sum = fmaf(to_f(o[d]), to_f(g[d]), sum);
   }
   sum = attn::warp_sum(sum);
   if (lane == 0) {
@@ -329,7 +340,8 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(Args a) {
 
 template <int D>
 constexpr size_t dkdv_smem() {
-  return sizeof(float) * (2 * kTile * D + 2 * kTile * (D + 1) + 2 * kTile * kTile +
+  constexpr int DP = attn::padded_dim<D>();
+  return sizeof(float) * (2 * kTile * DP + 2 * kTile * (DP + 1) + 2 * kTile * kTile +
                           2 * kTile) +
          sizeof(int2) * 2 * kTile;
 }
@@ -337,7 +349,8 @@ constexpr size_t dkdv_smem() {
 // one block per (64 keys, kv head, batch row); rows are keys, columns queries
 template <typename T, int D, class M>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a, M mask) {
-  constexpr int DC = D / 32;
+  constexpr int DP = attn::padded_dim<D>();
+  constexpr int DC = DP / 32;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int k0 = blockIdx.x * kTile;
@@ -346,19 +359,19 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a, M mask) {
   const int warp = threadIdx.x >> 5;
 
   extern __shared__ float smem[];
-  float* ks = smem;                       // [kTile][D]       keys (rows)
-  float* vs = ks + kTile * D;             // [kTile][D]
-  float* qs = vs + kTile * D;             // [kTile][D + 1]   queries (columns)
-  float* dos = qs + kTile * (D + 1);      // [kTile][D + 1]
-  float* ps = dos + kTile * (D + 1);      // [kTile keys][kTile queries]
+  float* ks = smem;                       // [kTile][DP]      keys (rows)
+  float* vs = ks + kTile * DP;            // [kTile][DP]
+  float* qs = vs + kTile * DP;            // [kTile][DP + 1]  queries (columns)
+  float* dos = qs + kTile * (DP + 1);     // [kTile][DP + 1]
+  float* ps = dos + kTile * (DP + 1);     // [kTile keys][kTile queries]
   float* dss = ps + kTile * kTile;        // [kTile keys][kTile queries]
   float* lse_s = dss + kTile * kTile;     // [kTile]
   float* dl_s = lse_s + kTile;            // [kTile]
   int2* km = reinterpret_cast<int2*>(dl_s + kTile);
   int2* qm = km + kTile;
 
-  stage<T, D, D>(ks, static_cast<const T*>(a.k), b, k0, a.s, hk, a.hkv);
-  stage<T, D, D>(vs, static_cast<const T*>(a.v), b, k0, a.s, hk, a.hkv);
+  stage<T, D, DP>(ks, static_cast<const T*>(a.k), b, k0, a.s, hk, a.hkv);
+  stage<T, D, DP>(vs, static_cast<const T*>(a.v), b, k0, a.s, hk, a.hkv);
   stage_meta(km, mask, b, k0, a.s);
 
   float dk[kRowsPerWarp][DC], dv[kRowsPerWarp][DC];
@@ -373,8 +386,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a, M mask) {
     const int h = hk * g + gg;
     for (int c0 = lo; c0 < hi; c0 += kTile) {
       __syncthreads();  // the previous tile's reads are done
-      stage<T, D, D + 1>(qs, static_cast<const T*>(a.q), b, c0, a.t, h, a.hq);
-      stage<T, D, D + 1>(dos, static_cast<const T*>(a.dout), b, c0, a.t, h, a.hq);
+      stage<T, D, DP + 1>(qs, static_cast<const T*>(a.q), b, c0, a.t, h, a.hq);
+      stage<T, D, DP + 1>(dos, static_cast<const T*>(a.dout), b, c0, a.t, h, a.hq);
       stage_meta(qm, mask, b, c0, a.t);
       stage_rows(lse_s, a.lse, b, h, a.hq, c0, a.t);
       stage_rows(dl_s, a.delta, b, h, a.hq, c0, a.t);
@@ -387,14 +400,14 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a, M mask) {
       for (int i = 0; i < kRowsPerWarp; ++i) sc[i][0] = sc[i][1] = dp[i][0] = dp[i][1] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        const float q0v = qs[lane * (D + 1) + d];
-        const float q1v = qs[(lane + 32) * (D + 1) + d];
-        const float o0v = dos[lane * (D + 1) + d];
-        const float o1v = dos[(lane + 32) * (D + 1) + d];
+        const float q0v = qs[lane * (DP + 1) + d];
+        const float q1v = qs[(lane + 32) * (DP + 1) + d];
+        const float o0v = dos[lane * (DP + 1) + d];
+        const float o1v = dos[(lane + 32) * (DP + 1) + d];
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
-          const float kv = ks[(warp + kWarps * i) * D + d];
-          const float vv = vs[(warp + kWarps * i) * D + d];
+          const float kv = ks[(warp + kWarps * i) * DP + d];
+          const float vv = vs[(warp + kWarps * i) * DP + d];
           sc[i][0] = fmaf(kv, q0v, sc[i][0]);
           sc[i][1] = fmaf(kv, q1v, sc[i][1]);
           dp[i][0] = fmaf(vv, o0v, dp[i][0]);
@@ -427,8 +440,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a, M mask) {
         float ov[DC], qv[DC];
 #pragma unroll
         for (int cc = 0; cc < DC; ++cc) {
-          ov[cc] = dos[c * (D + 1) + lane + 32 * cc];
-          qv[cc] = qs[c * (D + 1) + lane + 32 * cc];
+          ov[cc] = dos[c * (DP + 1) + lane + 32 * cc];
+          qv[cc] = qs[c * (DP + 1) + lane + 32 * cc];
         }
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -453,6 +466,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a, M mask) {
     const size_t off = ((static_cast<size_t>(b) * a.s + row) * a.hkv + hk) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
+      if (lane + 32 * c >= D) continue;
       attn::Vec<T>::store(dkp + off + lane + 32 * c, dk[i][c]);
       attn::Vec<T>::store(dvp + off + lane + 32 * c, dv[i][c]);
     }
@@ -461,14 +475,16 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a, M mask) {
 
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * kTile * D + 2 * kTile * (D + 1) + kTile * kTile + 2 * kTile) +
+  constexpr int DP = attn::padded_dim<D>();
+  return sizeof(float) * (2 * kTile * DP + 2 * kTile * (DP + 1) + kTile * kTile + 2 * kTile) +
          sizeof(int2) * 2 * kTile;
 }
 
 // one block per (64 queries, q head, batch row); rows are queries, columns keys
 template <typename T, int D, class M>
 __global__ void __launch_bounds__(kThreads) dq_kernel(Args a, M mask) {
-  constexpr int DC = D / 32;
+  constexpr int DP = attn::padded_dim<D>();
+  constexpr int DC = DP / 32;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * kTile;
@@ -477,18 +493,18 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a, M mask) {
   const int warp = threadIdx.x >> 5;
 
   extern __shared__ float smem[];
-  float* qs = smem;                       // [kTile][D]       queries (rows)
-  float* dos = qs + kTile * D;            // [kTile][D]
-  float* ks = dos + kTile * D;            // [kTile][D + 1]   keys (columns)
-  float* vs = ks + kTile * (D + 1);       // [kTile][D + 1]
-  float* dss = vs + kTile * (D + 1);      // [kTile queries][kTile keys]
+  float* qs = smem;                       // [kTile][DP]      queries (rows)
+  float* dos = qs + kTile * DP;           // [kTile][DP]
+  float* ks = dos + kTile * DP;           // [kTile][DP + 1]  keys (columns)
+  float* vs = ks + kTile * (DP + 1);      // [kTile][DP + 1]
+  float* dss = vs + kTile * (DP + 1);     // [kTile queries][kTile keys]
   float* lse_s = dss + kTile * kTile;     // [kTile]
   float* dl_s = lse_s + kTile;            // [kTile]
   int2* qm = reinterpret_cast<int2*>(dl_s + kTile);
   int2* km = qm + kTile;
 
-  stage<T, D, D>(qs, static_cast<const T*>(a.q), b, q0, a.t, h, a.hq);
-  stage<T, D, D>(dos, static_cast<const T*>(a.dout), b, q0, a.t, h, a.hq);
+  stage<T, D, DP>(qs, static_cast<const T*>(a.q), b, q0, a.t, h, a.hq);
+  stage<T, D, DP>(dos, static_cast<const T*>(a.dout), b, q0, a.t, h, a.hq);
   stage_meta(qm, mask, b, q0, a.t);
   stage_rows(lse_s, a.lse, b, h, a.hq, q0, a.t);
   stage_rows(dl_s, a.delta, b, h, a.hq, q0, a.t);
@@ -503,8 +519,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a, M mask) {
   mask.keys(q0, min(q0 + kTile, a.t), a.s, lo, hi);
   for (int c0 = lo; c0 < hi; c0 += kTile) {
     __syncthreads();  // the previous chunk's reads are done
-    stage<T, D, D + 1>(ks, static_cast<const T*>(a.k), b, c0, a.s, hk, a.hkv);
-    stage<T, D, D + 1>(vs, static_cast<const T*>(a.v), b, c0, a.s, hk, a.hkv);
+    stage<T, D, DP + 1>(ks, static_cast<const T*>(a.k), b, c0, a.s, hk, a.hkv);
+    stage<T, D, DP + 1>(vs, static_cast<const T*>(a.v), b, c0, a.s, hk, a.hkv);
     stage_meta(km, mask, b, c0, a.s);
     __syncthreads();
     if (!any_allowed(mask, qm, km)) continue;
@@ -515,14 +531,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a, M mask) {
     for (int i = 0; i < kRowsPerWarp; ++i) sc[i][0] = sc[i][1] = dp[i][0] = dp[i][1] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      const float k0v = ks[lane * (D + 1) + d];
-      const float k1v = ks[(lane + 32) * (D + 1) + d];
-      const float v0v = vs[lane * (D + 1) + d];
-      const float v1v = vs[(lane + 32) * (D + 1) + d];
+      const float k0v = ks[lane * (DP + 1) + d];
+      const float k1v = ks[(lane + 32) * (DP + 1) + d];
+      const float v0v = vs[lane * (DP + 1) + d];
+      const float v1v = vs[(lane + 32) * (DP + 1) + d];
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float qv = qs[(warp + kWarps * i) * D + d];
-        const float ov = dos[(warp + kWarps * i) * D + d];
+        const float qv = qs[(warp + kWarps * i) * DP + d];
+        const float ov = dos[(warp + kWarps * i) * DP + d];
         sc[i][0] = fmaf(qv, k0v, sc[i][0]);
         sc[i][1] = fmaf(qv, k1v, sc[i][1]);
         dp[i][0] = fmaf(ov, v0v, dp[i][0]);
@@ -552,7 +568,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a, M mask) {
     for (int j = 0; j < kTile; ++j) {
       float kv[DC];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = ks[j * (D + 1) + lane + 32 * c];
+      for (int c = 0; c < DC; ++c) kv[c] = ks[j * (DP + 1) + lane + 32 * c];
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         const float dd = dss[(warp + kWarps * i) * kTile + j];
@@ -569,7 +585,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a, M mask) {
     if (row >= a.t) continue;
     T* dst = dqp + ((static_cast<size_t>(b) * a.t + row) * a.hq + h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) attn::Vec<T>::store(dst + lane + 32 * c, dq[i][c]);
+    for (int c = 0; c < DC; ++c)
+      if (lane + 32 * c < D) attn::Vec<T>::store(dst + lane + 32 * c, dq[i][c]);
   }
 }
 
@@ -636,10 +653,12 @@ int dispatch(const Args& a, const M& m, int d, int dtype, void* stream) {
   }
   if (dtype == 0) {
     TATTN_CASE(float, 32)
+    TATTN_CASE(float, 48)
     TATTN_CASE(float, 64)
     TATTN_CASE(float, 128)
   } else if (dtype == 1) {
     TATTN_CASE(__nv_bfloat16, 32)
+    TATTN_CASE(__nv_bfloat16, 48)
     TATTN_CASE(__nv_bfloat16, 64)
     TATTN_CASE(__nv_bfloat16, 128)
   }

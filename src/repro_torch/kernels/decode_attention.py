@@ -27,7 +27,7 @@ from . import build, launches
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 48, 64, 128)
 
 
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:

@@ -52,8 +52,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 def check_train_inputs(q, k, v, *more):
     """Raise on what the training kernels do not take: q [B, T, Hq, D] and
-    k, v [B, S, Hkv, D] of one dtype (float32 / bfloat16), D in (32, 64,
-    128), contiguous, 16-byte aligned, on one device; ``more``: further
+    k, v [B, S, Hkv, D] of one dtype (float32 / bfloat16), D in (32, 48,
+    64, 128), contiguous, 16-byte aligned, on one device; ``more``: further
     (name, tensor, shape, dtype) operands."""
     b, t, hq, d = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b \

@@ -5,9 +5,10 @@ The ``Executor`` owns what lives on the device: the KV caches (paged pools
 or contiguous rows), the one ``DecodeState`` and the step functions built
 by ``SpecDecoder`` with chunked prefill, so every step advances decoding
 rows AND consumes prompt chunks for prefilling rows in the same two
-forwards. Admission writes the prompt into ``gen`` and arms the prefill
-cursor; retirement freezes the row; ``sync_tables`` pushes the allocator's
-host block tables when they change; the scheduler's template
+forwards. Admission writes the prompt into ``gen``, arms the prefill
+cursor and zeroes the slot's Mamba2 states; retirement freezes the row;
+``sync_tables`` pushes the allocator's host block tables when they
+change; the scheduler's template
 re-selections (tree drafting) are applied to ``tree_idx`` at the next
 dispatch, before the step.
 
@@ -26,8 +27,24 @@ import torch
 
 from ..core.spec_decode import DecodeState, SpecDecoder
 from ..models import init_caches
-from ..models.config import ModelConfig
+from ..models.config import SSM, ModelConfig, scan_plan
 from . import kv_pool
+
+
+def zero_ssm_rows(cfg: ModelConfig, caches, slot: int) -> None:
+    """Reset batch row ``slot`` of every Mamba2 conv and SSM state to the
+    init state (zeros), in place. Chunked prefill reuses slots, so a
+    recycled slot's recurrent state must be cleared before its first chunk;
+    attention KV needs nothing (validity is ``position < kv_len``)."""
+    plan = scan_plan(cfg)
+    for spec, entry in zip(plan.prefix, caches["prefix"]):
+        if spec.mixer == SSM:
+            for leaf in entry.values():
+                leaf[slot].zero_()
+    for spec, entry in zip(plan.period, caches["scan"]):
+        if spec.mixer == SSM:
+            for leaf in entry.values():            # [R, B, ...]
+                leaf[:, slot].zero_()
 
 
 @dataclasses.dataclass
@@ -64,6 +81,7 @@ class Executor:
                  num_blocks: Optional[int], kv_dtype: str,
                  device: torch.device):
         self.dec = dec
+        self.cfgs = [c for c in (target_cfg, draft_cfg) if c is not None]
         self.mode = mode
         self.max_len = max_len
         self.device = device
@@ -73,10 +91,11 @@ class Executor:
         self._n_draft = 0 if mode == "ar" else 1
 
         dtype = kv_pool.KV_DTYPES[kv_dtype]
-        cfgs = [c for c in (target_cfg, draft_cfg) if c is not None]
+        cfgs = self.cfgs
         if paged:
-            caches = [kv_pool.init_paged_caches(c, num_blocks, kv_block_size,
-                                                dtype, device) for c in cfgs]
+            caches = [kv_pool.init_paged_caches(c, max_batch, num_blocks,
+                                                kv_block_size, dtype, device)
+                      for c in cfgs]
             self.kv_per_block = sum(kv_pool.kv_bytes_per_block(c, num_blocks)
                                     for c in caches)
         else:
@@ -109,9 +128,9 @@ class Executor:
 
     def admit_row(self, slot: int, prompt: np.ndarray, tree_idx: int = 0) -> None:
         """Arm ``slot`` for a new request: prompt into ``gen``, counters to
-        the committed state, prefill cursor at 0, template ``tree_idx``
-        (tree drafting). No forward runs here: the steps prefill chunk by
-        chunk."""
+        the committed state, prefill cursor at 0, Mamba2 states zeroed,
+        template ``tree_idx`` (tree drafting). No forward runs here: the
+        steps prefill chunk by chunk."""
         p = len(prompt)
         row = np.zeros((self.max_len,), np.int64)
         row[:p] = prompt
@@ -122,6 +141,8 @@ class Executor:
         st.done[slot] = False
         st.pf_pos[slot] = 0
         st.pf_len[slot] = p - 1
+        for cfg, caches in zip(self.cfgs, (st.tcache, st.dcache)):
+            zero_ssm_rows(cfg, caches, slot)
         if st.tree_idx is not None:
             self.set_tree_idx(slot, tree_idx)
 

@@ -5,9 +5,10 @@ Port of ``repro.serving.kv_pool`` without the prefix cache. In the paged
 layout attention KV lives in shared pools of fixed-size blocks
 ``[num_blocks, block_size, Hkv, D]`` per layer (stacked layers carry a
 leading repeats axis); each slot owns a block-table row mapping absolute
-position ``p`` to ``(table[p // block_size], p % block_size)``. The
-contiguous layout (``models.init_caches``) holds one full-length row per
-slot, committed up front; it needs no allocator.
+position ``p`` to ``(table[p // block_size], p % block_size)``. Mamba2
+layers keep their float32 conv and SSM states per batch row in either
+layout. The contiguous layout (``models.init_caches``) holds one
+full-length row per slot, committed up front; it needs no allocator.
 
 Invariants (as in the JAX package):
 
@@ -27,8 +28,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..models.config import ModelConfig, scan_plan
-from ..models.transformer import check_supported
+from ..models.config import SSM, ModelConfig, scan_plan
+from ..models.ssm import init_mamba2_state
+from ..models.transformer import check_supported, stack_layer_caches
 
 KV_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -43,35 +45,39 @@ def default_num_blocks(max_batch: int, max_len: int, block_size: int) -> int:
     return max_batch * blocks_for(max_len, block_size) + 1
 
 
-def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
-                      dtype=torch.bfloat16, device="cuda"):
-    """Zeroed pools with the params tree's layout: ``prefix`` holds one
-    ``{"k", "v"}`` dict per prefix layer ``[NB, bs, Hkv, D]``, ``scan`` one
-    per period position with a leading repeats axis."""
+def init_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
+                      block_size: int, dtype=torch.bfloat16, device="cuda"):
+    """Zeroed caches with the params tree's layout: ``prefix`` holds one
+    dict per prefix layer, ``scan`` one per period position with a leading
+    repeats axis. Attention layers hold ``{"k", "v"}`` pools ``[NB, bs,
+    Hkv, D]`` in ``dtype``; Mamba2 layers keep ``{"conv", "ssm"}`` states
+    of ``batch`` rows in float32."""
     check_supported(cfg)
-    plan = scan_plan(cfg)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
 
-    def pools(lead=()):
-        return {n: torch.zeros(lead + shape, dtype=dtype, device=device)
+    def make(spec):
+        if spec.mixer == SSM:
+            return init_mamba2_state(cfg, batch, device)
+        return {n: torch.zeros(shape, dtype=dtype, device=device)
                 for n in ("k", "v")}
 
-    return {"prefix": [pools() for _ in plan.prefix],
-            "scan": [pools((plan.n_repeats,)) for _ in plan.period]}
+    return stack_layer_caches(scan_plan(cfg), make)
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    return [t for entry in tree["prefix"] + tree["scan"] for t in entry.values()]
+def _attn_leaves(tree) -> List[torch.Tensor]:
+    return [t for entry in tree["prefix"] + tree["scan"]
+            for name, t in entry.items() if name in ("k", "v")]
 
 
 def kv_capacity_bytes(tree) -> int:
-    """Device bytes held by the KV caches (paged pools or contiguous
-    rows)."""
-    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+    """Device bytes held by the attention KV (paged pools or contiguous
+    rows); Mamba2 states are not KV and are not counted."""
+    return sum(t.numel() * t.element_size() for t in _attn_leaves(tree))
 
 
 def kv_bytes_per_block(tree, num_blocks: int) -> int:
-    """Bytes one pool block costs across all layers."""
+    """Bytes one pool block costs across all attention layers (0 for a
+    model without attention)."""
     return kv_capacity_bytes(tree) // num_blocks
 
 

@@ -197,8 +197,8 @@ class Scheduler:
         self._submit_t: Dict[int, float] = {}
         self.stats: Dict = dict(
             steps=0, committed=0, accepted=0, live_steps=0,
-            draft_forwards=0, target_forwards=0, prefill_chunks=0,
-            prefill_tokens=0)
+            draft_forwards=0, target_forwards=0, prefill_steps=0,
+            prefill_chunks=0, prefill_tokens=0)
         if self.bank is not None:
             self.stats["tree_hist"] = np.zeros(len(self.bank), np.int64)
             self.stats["tree_switches"] = 0
@@ -333,9 +333,11 @@ class Scheduler:
         if self.bank is not None:
             tree_sel = np.asarray([0 if s is None else s.tree
                                    for s in self.slots], np.int64)
-        handle = self.ex.dispatch(any_prefilling=self.prefilling_count() > 0,
+        any_prefilling = self.prefilling_count() > 0
+        handle = self.ex.dispatch(any_prefilling=any_prefilling,
                                   tree_sel=tree_sel)
         self.stats["steps"] += 1
+        self.stats["prefill_steps"] += any_prefilling
         self.stats["target_forwards"] += 1
         self.stats["draft_forwards"] += handle.n_draft
         for s in self.slots:

@@ -108,7 +108,7 @@ def test_allocator_matches_jax():
 
 def test_paged_caches_match_jax_layout():
     cfg, jcfg = get_config("tiny-target"), jax_get_config("tiny-target")
-    mine = kv_pool.init_paged_caches(cfg, 9, 8, torch.bfloat16, "cpu")
+    mine = kv_pool.init_paged_caches(cfg, 2, 9, 8, torch.bfloat16, "cpu")
     theirs = jax_kv_pool.init_paged_caches(jcfg, 2, 9, 8, jnp.bfloat16)
     assert jax.tree.map(lambda t: tuple(t.shape), mine,
                         is_leaf=lambda x: isinstance(x, torch.Tensor)) == \
@@ -192,6 +192,19 @@ def test_pard_equals_ar(jax_models, dtype):
     for i, p in enumerate(prompts):
         assert len(pard[i]) == len(p) + 12
         np.testing.assert_array_equal(pard[i], ar[i])
+
+
+@pytest.mark.parametrize("mode", ["pard", "ar"])
+def test_prefill_steps_counts_steps_with_a_prefilling_row(jax_models, mode):
+    """``stats["prefill_steps"]``: the steps in which some row consumed a
+    prompt chunk (the AR engine's wide windows)."""
+    models = _port_models(jax_models, torch.float32)
+    prompt = _prompts(3, 1, lo=20, hi=21)
+    eng, _ = _serve(models, prompt, max_new=5, mode=mode, **SMALL)
+    want = -(-(len(prompt[0]) - 1) // eng.sched.chunk)
+    assert eng.stats["prefill_steps"] == want
+    assert eng.stats["prefill_chunks"] == want
+    assert eng.stats["steps"] > want
 
 
 def test_matches_jax_engine(jax_models):

@@ -114,9 +114,9 @@ def test_train_inputs_checked():
     k = torch.randn(1, 8, 2, 32)
     fa.check_train_inputs(q, k, k)
     with pytest.raises(ValueError, match="head dim"):
-        fa.check_train_inputs(torch.randn(1, 8, 4, 48),
-                              torch.randn(1, 8, 2, 48),
-                              torch.randn(1, 8, 2, 48))
+        fa.check_train_inputs(torch.randn(1, 8, 4, 40),
+                              torch.randn(1, 8, 2, 40),
+                              torch.randn(1, 8, 2, 40))
     with pytest.raises(TypeError):
         fa.check_train_inputs(q, k.bfloat16(), k.bfloat16())
     with pytest.raises(ValueError, match="group"):

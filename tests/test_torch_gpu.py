@@ -13,6 +13,7 @@ from repro_torch import kernels
 from repro_torch.configs import get_config
 from repro_torch.core.spec_decode import TreeTemplate
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import ssd
 from repro_torch.kernels import tree_attention as ta
 from repro_torch.models import forward, init_params
 from repro_torch.serving import kv_pool
@@ -53,6 +54,8 @@ def _case(dev, b, tq, hq, hkv, d, bs, kv_len, kv_dtype, q_dtype, seed=0):
     (1, 4, 4, 64, 16, [1, 7, 80, 33]),             # AR decode
     (32, 14, 2, 64, 8, [40, 64, 3, 100]),          # G = 7, Tq*G > 64 rows
     (5, 4, 2, 32, 8, [6, 20, 13, 31]),             # tiny test models
+    (9, 4, 2, 48, 16, [1, 29, 70, 130]),           # D = 48 (tiny-mid), G 2
+    (16, 2, 2, 48, 8, [16, 40, 95, 200]),          # D = 48, G 1
 ])
 @pytest.mark.parametrize("kv_dtype,q_dtype,tol", [
     (torch.float32, torch.float32, 1e-4),
@@ -85,9 +88,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     case = _case(cuda, 2, 3, 4, 2, 64, 16, [20, 30], torch.float32,
                  torch.float32)
     with pytest.raises(ValueError):                 # head dim not built
-        da.decode_attention_paged(case["q"][..., :48].contiguous(),
-                                  case["k_pages"][..., :48].contiguous(),
-                                  case["v_pages"][..., :48].contiguous(),
+        da.decode_attention_paged(case["q"][..., :40].contiguous(),
+                                  case["k_pages"][..., :40].contiguous(),
+                                  case["v_pages"][..., :40].contiguous(),
                                   case["block_tables"], case["kv_len"],
                                   case["q_pos"])
     with pytest.raises(TypeError):                  # int64 tables
@@ -116,7 +119,7 @@ def test_forward_card_matches_cpu(cuda):
     tables = torch.tensor([[1, 3, 5, 7], [2, 4, 6, 8]], dtype=torch.int32)
     outs = []
     for dev, p in (("cpu", params), (cuda, _tree_to(params, cuda))):
-        pools = kv_pool.init_paged_caches(cfg, 9, 8, torch.float32, dev)
+        pools = kv_pool.init_paged_caches(cfg, 2, 9, 8, torch.float32, dev)
         pos = torch.zeros(2, dtype=torch.long, device=dev)
         forward(p, cfg, toks[:, :16].to(dev), caches=pools, cache_pos=pos,
                 block_tables=tables.to(dev), kv_block_size=8,
@@ -211,6 +214,8 @@ def _tree_case(dev, b, tq, hq, hkv, d, bs, kv_dtype, q_dtype, seed=0):
     (9, 32, 8, 128, 64),         # the chain template at K = 8
     (32, 14, 2, 64, 16),         # G = 7, full 32-slot window
     (11, 4, 2, 32, 8),           # tiny test models
+    (11, 4, 2, 48, 8),           # D = 48, G 2
+    (9, 2, 2, 48, 16),           # D = 48, G 1
 ])
 @pytest.mark.parametrize("kv_dtype,q_dtype,tol", [
     (torch.float32, torch.float32, 1e-4),
@@ -246,7 +251,8 @@ def test_tree_kernels_window_softcap(cuda, window, softcap):
 
 
 @pytest.mark.parametrize("tq,hq,hkv,d", [(9, 32, 8, 128), (16, 32, 8, 64),
-                                         (1, 4, 4, 32), (40, 14, 2, 64)])
+                                         (1, 4, 4, 32), (40, 14, 2, 64),
+                                         (9, 4, 2, 48), (16, 2, 2, 48)])
 @pytest.mark.parametrize("kv_dtype,q_dtype,tol", [
     (torch.float32, torch.float32, 1e-4),
     (torch.bfloat16, torch.bfloat16, 2e-2),
@@ -372,6 +378,8 @@ def _assert_grads_close(got, want, tol):
     (1, 129, 4, 4, 128, 0, 0.0),
     (2, 77, 4, 2, 32, 16, 0.0),       # window
     (1, 200, 4, 1, 64, 0, 30.0),      # softcap
+    (2, 130, 4, 2, 48, 0, 0.0),       # D = 48, G = 2
+    (1, 77, 2, 2, 48, 16, 20.0),      # D = 48, G = 1, window + softcap
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -409,6 +417,8 @@ def test_flash_kernel_rows_that_see_no_key(cuda):
     (2, 200, 8, 8, 2, 64, 0.0),
     (1, 130, 4, 4, 4, 32, 0.0),
     (2, 64, 8, 4, 1, 128, 20.0),
+    (2, 100, 8, 4, 2, 48, 0.0),       # D = 48, G = 2
+    (1, 64, 4, 2, 2, 48, 20.0),       # D = 48, G = 1
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -448,8 +458,8 @@ def test_training_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):                  # mixed dtypes
         fa.flash_attention(q, k.bfloat16(), v.bfloat16())
     with pytest.raises(ValueError):                 # head dim not built
-        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                           v[..., :48].contiguous())
+        fa.flash_attention(q[..., :40].contiguous(), k[..., :40].contiguous(),
+                           v[..., :40].contiguous())
     seg = torch.ones(1, 16, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):                  # int64 metadata
         pa.pard_attention(q, k, v, seg.long(), seg)
@@ -483,3 +493,157 @@ def test_trainer_on_card_matches_cpu(cuda):
         for a, b in zip(*hists):
             assert b["loss"] == pytest.approx(a["loss"], rel=1e-4)
             assert b["tokens"] == a["tokens"]
+
+
+def test_tiny_mid_draft_engine_on_card(cuda):
+    """A head-dim-48 draft (tiny-mid) in fp32 on the card: PARD == AR on
+    both layouts, one attention launch per layer per step."""
+    tc, dc = get_config("tiny-target"), get_config("tiny-mid")
+    tp = init_params(tc, 0, cuda, torch.float32)
+    dp = init_params(dc, 1, cuda, torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, size=int(n))
+               for n in rng.integers(4, 30, size=4)]
+    out = {}
+    for layout in ("paged", "contiguous"):
+        name = ("decode_attention_paged" if layout == "paged"
+                else "decode_attention")
+        for mode in ("pard", "ar"):
+            eng = Engine(tp, tc, dp, dc, config=EngineConfig(
+                mode=mode, k=4, max_batch=2, max_len=256, kv_block_size=16,
+                kv_dtype="fp32", kv_layout=layout))
+            rids = {eng.submit(p, 16): i for i, p in enumerate(prompts)}
+            kernels.launches.clear()
+            comps = eng.run()
+            layers = tc.num_layers + (dc.num_layers if mode == "pard" else 0)
+            assert dict(kernels.launches) == {
+                name: layers * eng.stats["steps"]}
+            out[layout, mode] = {rids[c.rid]: c.tokens for c in comps}
+    for key in out:
+        for i in range(len(prompts)):
+            np.testing.assert_array_equal(out[key][i],
+                                          out["paged", "ar"][i])
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 SSD scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(dev, b, t, h, p, n, dtype, init=True, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, t, h, p, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=g) - 1)
+    A = -torch.exp(torch.randn(h, generator=g) * 0.5)
+    B = torch.randn(b, t, n, generator=g)
+    C = torch.randn(b, t, n, generator=g)
+    s0 = torch.randn(b, h, p, n, generator=g) * 0.1 if init else None
+    f32 = dict(device=dev, dtype=torch.float32)
+    return (x.to(dev, dtype), dt.to(**f32), A.to(**f32), B.to(dev, dtype),
+            C.to(dev, dtype), None if s0 is None else s0.to(**f32))
+
+
+def _scaled_close(got, want, tol):
+    err = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp(min=1.0)).max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk,init", [
+    (4, 9, 24, 64, 128, 64, True),     # mamba2-130m verify window
+    (4, 16, 24, 64, 128, 64, True),    # mamba2-130m draft window
+    (2, 50, 24, 64, 128, 16, False),   # t off the chunk, zero state
+    (2, 9, 2, 32, 16, 8, True),        # tiny-ssm
+    (3, 50, 2, 32, 16, 16, True),
+    (1, 2048, 2, 32, 16, 64, True),    # a long scan of 32 chunks
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ssd_kernel_matches_plain(cuda, b, t, h, p, n, chunk, init, dtype,
+                                  tol):
+    ins = _ssd_inputs(cuda, b, t, h, p, n, dtype, init)
+    before = kernels.launches["ssd_chunked"]
+    y, s = ssd.ssd_chunked(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kernels.launches["ssd_chunked"] == before + 1
+    wy, ws = ssd.ssd_chunked_ref(*ins, chunk=ssd.clamp_chunk(chunk, t))
+    assert y.dtype == dtype and y.shape == ins[0].shape
+    assert s.dtype == torch.float32 and s.shape == (b, h, p, n)
+    _scaled_close(y, wy, tol)
+    _scaled_close(s, ws, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ssd_gather_route_on_card(cuda, dtype, tol):
+    """dt = 0 past idx[b]: the state after idx[b] + 1 tokens, as the
+    token-by-token oracle collects it; a fully masked window leaves the
+    state bit for bit."""
+    x, dt, A, B, C, s0 = _ssd_inputs(cuda, 4, 16, 24, 64, 128, dtype)
+    idx = torch.tensor([0, 5, 8, 15], device=cuda)
+    keep = torch.arange(16, device=cuda)[None] <= idx[:, None]
+    _, s = ssd.ssd_chunked(x, dt * keep[..., None], A, B, C, s0, chunk=64)
+    _, states = ssd.ssd_ref(x, dt, A, B, C, s0, collect_states=True)
+    _scaled_close(s, states[torch.arange(4, device=cuda), idx], tol)
+    _, same = ssd.ssd_chunked(x, dt * 0, A, B, C, s0, chunk=64)
+    assert torch.equal(same, s0)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, A, B, C, s0 = _ssd_inputs(cuda, 1, 16, 2, 32, 16, torch.float32)
+    with pytest.raises(TypeError):                  # mixed dtypes
+        ssd.ssd_chunked(x, dt, A, B.bfloat16(), C, s0)
+    with pytest.raises(TypeError):                  # bf16 dt
+        ssd.ssd_chunked(x, dt.bfloat16(), A, B, C, s0)
+    with pytest.raises(ValueError):                 # chunk past the tiles
+        ssd.ssd_chunked(x.repeat(1, 8, 1, 1), dt.repeat(1, 8, 1), A,
+                        B.repeat(1, 8, 1), C.repeat(1, 8, 1), s0, chunk=128)
+    with pytest.raises(ValueError):                 # non-contiguous x
+        ssd.ssd_chunked(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                        A, B, C, s0)
+    with pytest.raises(NotImplementedError):        # no backward kernel yet
+        ssd.ssd_chunked(x.requires_grad_(True), dt, A, B, C, s0)
+
+
+HYBRID = dict(name="hybrid-test", arch_type="hybrid", num_layers=4,
+              attn_every=2, d_model=64, n_heads=2, n_kv_heads=1, head_dim=32,
+              d_ff=128, vocab_size=512, ssm_state=16, ssm_headdim=32,
+              ssm_chunk=8, tie_embeddings=True, max_seq_len=1024,
+              source="test")
+
+
+@pytest.mark.parametrize("name", ["tiny-ssm", "hybrid"])
+def test_ssm_engines_on_card(cuda, name):
+    """fp32 Mamba2 / dense-hybrid engines on the card, target = draft:
+    forward logits against the CPU; PARD == AR on both layouts with a
+    recycled slot; ssd_chunked launches per SSM layer as the steps run."""
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(**HYBRID) if name == "hybrid" else get_config(name)
+    params = init_params(cfg, 3, "cpu", torch.float32)
+    on = _tree_to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 19)))
+    outs = [forward(p, cfg, toks.to(dev), dtype=torch.float32)[0].cpu()
+            for dev, p in (("cpu", params), (cuda, on))]
+    torch.testing.assert_close(outs[1], outs[0], atol=2e-3, rtol=2e-3)
+    n_ssm = sum(1 for i in range(cfg.num_layers)
+                if name == "tiny-ssm" or i % 2 == 0)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, size=n) for n in (7, 13, 20)]
+    out = {}
+    for layout in ("paged", "contiguous"):
+        for mode in ("pard", "ar"):
+            eng = Engine(on, cfg, on, cfg, config=EngineConfig(
+                mode=mode, k=4, max_batch=2, max_len=256, kv_block_size=16,
+                kv_dtype="fp32", kv_layout=layout))
+            rids = {eng.submit(p, 16): i for i, p in enumerate(prompts)}
+            kernels.launches.clear()
+            comps = eng.run()
+            # PARD: two forwards, each scanned and gathered; AR: one scan
+            # a step, plus a gather on the steps widened for prefill
+            want = (4 * n_ssm * eng.stats["steps"] if mode == "pard" else
+                    n_ssm * (eng.stats["steps"] + eng.stats["prefill_steps"]))
+            assert kernels.launches["ssd_chunked"] == want
+            out[layout, mode] = {rids[c.rid]: c.tokens for c in comps}
+    for key in out:
+        for i in range(len(prompts)):
+            np.testing.assert_array_equal(out[key][i],
+                                          out["paged", "ar"][i])

@@ -212,7 +212,7 @@ def test_paged_forward_matches_jax(backend, variant):
     l2, _, _ = jax_forward(jp, jcfg, jnp.asarray(toks[:, 16:]), caches=pools,
                            cache_pos=jnp.asarray([16, 11], jnp.int32), **kw)
 
-    tpools = kv_pool.init_paged_caches(cfg, 9, 8, torch.float32, "cpu")
+    tpools = kv_pool.init_paged_caches(cfg, 2, 9, 8, torch.float32, "cpu")
     tkw = dict(block_tables=torch.from_numpy(tables), kv_block_size=8,
                dtype=torch.float32)
     t1, tpools = forward(tp, cfg, torch.from_numpy(toks[:, :16]).long(),
@@ -239,8 +239,12 @@ def test_forward_outside_the_slice_raises():
                       moe_num_experts=4, moe_top_k=2)
     with pytest.raises(NotImplementedError):
         init_params(moe, 0, "cpu")
+    mla = ModelConfig(name="mla", arch_type="dense", num_layers=1,
+                      d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+                      vocab_size=64, attn_kind="mla", kv_lora_rank=16,
+                      qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8)
     with pytest.raises(NotImplementedError):
-        kv_pool.init_paged_caches(get_config("tiny-ssm"), 3, 8, device="cpu")
+        kv_pool.init_paged_caches(mla, 2, 3, 8, device="cpu")
 
 
 def test_greedy_chain_accept_matches_jax():

@@ -295,8 +295,8 @@ def test_compact_tree_caches_matches_jax(layout):
         tables = tables.astype(np.int32)
         jcache = jax_kv_pool.init_paged_caches(jcfg, b, 1 + b * 6, bs,
                                                dtype=jnp.float32)
-        port = kv_pool.init_paged_caches(cfg, 1 + b * 6, bs, torch.float32,
-                                         "cpu")
+        port = kv_pool.init_paged_caches(cfg, b, 1 + b * 6, bs,
+                                         torch.float32, "cpu")
     else:
         tables = None
         jcache = jax.tree.map(lambda a: a, jax_sd.init_caches(
@@ -379,7 +379,7 @@ def test_tree_step_matches_jax(models, jax_models, layout, monkeypatch):
     def caches():
         if paged:
             return _to_port(vals, kv_pool.init_paged_caches(
-                tc, nb, bs, torch.float32, "cpu"))
+                tc, 4, nb, bs, torch.float32, "cpu"))
         return _to_port(vals, init_caches(tc, 4, max_len, torch.float32,
                                           "cpu"))
 
