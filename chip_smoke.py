@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from ``src/repro_torch/csrc`` in parallel (one ``nvcc -Xptxas -v``
      each): decode_attention_paged, decode_attention, tree_attention_paged,
      tree_attention, flash_attention(_bwd), pard_attention(_bwd),
-     ssd_chunked;
+     ssd_chunked; for the training kernels each bf16 instance's
+     registers, spills and shared memory, and a check that the SASS of
+     every bf16 product kernel (``cuobjdump -sass``) holds HGMMA or HMMA;
   3. kernel vs plain: each attention kernel against its plain PyTorch
      version on the card (head dims 128 / 64 / 48 / 32, G 1, 2 and 4, bf16
      and fp32, ragged contexts up to 4096, window + softcap, random tree
@@ -51,8 +53,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and softcap, COD layouts of the port's pack_batch at K=8, r=0.7,
      r_min=0.2 with segment-0 padding, and the exact bf16 shapes of the
      training runs of phase 9; rows that see no key give 0 and take no
-     gradient); then their times at the training shapes beside the bound,
-     the plain versions and SDPA;
+     gradient; two backward calls give bitwise-equal gradients), plus the
+     cases where the tensor-core tiles can break, at every head dim in
+     bf16: T = 1, 65 and 1023, S < T with a window, a COD layout with a
+     64-token tile of padding only and one with tiles classed full; then
+     their times at the training shapes beside the bound, the plain
+     versions and SDPA (SDPA's backward over the same rotating input sets
+     as the kernel's), and the COD tile classes visited and full;
   9. training at full width (llama3.2-1b, 16 layers, random weights from
      --seed, f32 params and AdamW moments, bf16 activations, the cosine
      schedule of ``repro_torch.launch.train`` at peak 1e-3, its trainer
@@ -96,6 +103,9 @@ REPLACES = {                         # kernel -> the TPU kernel it ports
     "ssd_chunked": "src/repro/kernels/ssd.py:70",
 }
 KERNELS = tuple(REPLACES)
+TRAIN_KERNELS = {"flash": ("flash_attention", "flash_attention_bwd"),
+                 "pard": ("pard_attention", "pard_attention_bwd")}
+TRAIN_NAMES = tuple(n for pair in TRAIN_KERNELS.values() for n in pair)
 WIDE = (2, 2, 1, 1, 1, 1, 1, 1)      # the default bank's 31-slot template at K=8
 TRAIN_MODEL = "llama3.2-1b"
 TRAIN_SEQ = {"ar": 1024, "pard": 512}   # N per row; PARD packs 512 to T=1726
@@ -308,9 +318,75 @@ def phase_build(build):
     log(f"[build] {len(KERNELS)} sources in parallel in "
         f"{time.perf_counter() - t0:.1f}s (nvcc -O3 sm_90a)")
     for name in KERNELS:
+        if name in TRAIN_NAMES:
+            continue
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for name in TRAIN_NAMES:
+        lib = build.load(name)
+        smem = getattr(lib, f"{name}_smem")
+        log(f"  {name}: bf16 dynamic shared memory " + ", ".join(
+            f"D={d} {smem(d)} B" for d in (32, 48, 64, 128)))
+        for kernel, (regs, spills) in ptxas_report(logs[name]).items():
+            log(f"  {name}: {kernel}: {regs} registers, {spills} spill "
+                f"bytes (stores + loads)")
+        check_tensor_cores(build, name)
+
+
+def ptxas_report(text):
+    """{kernel: (registers, spill bytes)} from ``nvcc -Xptxas -v`` output,
+    for the entries of the bf16 training kernels (namespace tmma), named
+    kernel<D, Mask>."""
+    import re
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(_ZN4tmma\w+)'", line)
+        if m:
+            cur = _tmma_label(m.group(1))
+            out[cur] = [0, 0]
+        elif "Compiling entry function" in line:
+            cur = None
+        elif cur and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill", line)
+            out[cur][1] = sum(int(x) for x in nums)
+        elif cur and "Used" in line and "registers" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _tmma_label(mangled):
+    """fwd_kernel<64, CausalMask> from tmma's mangled kernel name."""
+    import re
+    m = re.match(r"_ZN4tmma(\d+)", mangled)
+    name = mangled[m.end():m.end() + int(m.group(1))]
+    d = re.match(r"ILi(\d+)E", mangled[m.end() + int(m.group(1)):]).group(1)
+    masks = [k for k in ("CausalMask", "CodMask") if k in mangled]
+    return f"{name}<{', '.join([d] + masks)}>"
+
+
+def check_tensor_cores(build, name):
+    """Fail unless the SASS of every bf16 product kernel of ``name``'s
+    library (tmma's fwd / dkdv / dq instances; its delta pass has no
+    product) holds HMMA or HGMMA."""
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    seen = {}
+    for chunk in sass.split("Function : ")[1:]:
+        fn = chunk.split(None, 1)[0]
+        if fn.startswith("_ZN4tmma") and any(
+                k in fn for k in ("fwd_kernel", "dkdv_kernel", "dq_kernel")):
+            seen[_tmma_label(fn)] = ("HGMMA" if "HGMMA" in chunk else
+                                     "HMMA" if "HMMA" in chunk else None)
+    want = 8 if name.endswith("_bwd") else 4        # (dkdv, dq) x 4 head dims
+    missing = [k for k, v in seen.items() if v is None]
+    if len(seen) != want or missing:
+        raise SmokeFailure(f"{name}: bf16 kernels without tensor-core "
+                           f"instructions in SASS: {missing} (found {seen})")
+    log(f"  {name}: SASS of {len(seen)} bf16 kernels: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(seen.items())))
 
 
 def _sync(torch, dev):
@@ -977,8 +1053,6 @@ def phase_ssm_engine(torch, kernels, args, dev="cuda"):
 # training kernels and training
 # ---------------------------------------------------------------------------
 
-TRAIN_KERNELS = {"flash": ("flash_attention", "flash_attention_bwd"),
-                 "pard": ("pard_attention", "pard_attention_bwd")}
 
 
 def _cod_layout(torch, rng, b, n, extra, dev):
@@ -1018,9 +1092,12 @@ def train_attention(c, plain):
         fn = fa.flash_attention_ref if plain else fa.flash_attention
         return lambda q, k, v: fn(q, k, v, causal=True, window=c["window"],
                                   softcap=c["softcap"])
-    fn = pa.pard_attention_ref if plain else pa.pard_attention
-    return lambda q, k, v: fn(q, k, v, c["seg"], c["base"],
-                              softcap=c["softcap"])
+    if plain:
+        return lambda q, k, v: pa.pard_attention_ref(
+            q, k, v, c["seg"], c["base"], softcap=c["softcap"])
+    info = pa.PardMaskInfo(c["seg"], c["base"])
+    return lambda q, k, v: pa.pard_attention(q, k, v, info,
+                                             softcap=c["softcap"])
 
 
 def fwd_bwd(c, plain):
@@ -1062,11 +1139,27 @@ def train_correctness_cases(torch):
              dict(b=4, t=TRAIN_SEQ["ar"] - 1, hq=32, hkv=8, d=64)),
             ("pard", "main path PARD B=4 N=512 Hq=32 Hkv=8 D=64",
              dict(b=4, n=TRAIN_SEQ["pard"], hq=32, hkv=8, d=64))]
+    # where the tensor-core tiles can break (fragment coordinates, tile
+    # classes): one row, a row off the tile, T one short of the training
+    # length, rows that see no key, a 64-token tile of padding only, and
+    # COD tiles classed full; every head dim, bf16
+    edge = [(kind, f"edge {label} D={d} bfloat16", dict(kw, d=d, dtype=bf))
+            for d in (32, 48, 64, 128) for kind, label, kw in (
+                ("flash", "T=1", dict(b=2, t=1, hq=4, hkv=2)),
+                ("flash", "T=65 G=4", dict(b=2, t=65, hq=4, hkv=1)),
+                ("flash", "T=1023", dict(b=1, t=1023, hq=4, hkv=2)),
+                ("flash", "S=128 < T=300 window 40", dict(b=2, t=300, s=128,
+                                                          hq=4, hkv=2,
+                                                          window=40)),
+                ("pard", "a tile of padding N=100", dict(
+                    b=2, n=100, hq=4, hkv=2, extra=130, need="padding")),
+                ("pard", "full tiles N=256 G=4", dict(
+                    b=2, n=256, hq=4, hkv=1, need="full")))]
     return [(kind, f"{label} {str(dt).split('.')[1]}", dict(kw, dtype=dt))
             for kind, cases in (("flash", flash), ("pard", pard))
             for label, kw in cases for dt in (bf, f32)] + [
         (kind, f"{label} bfloat16", dict(kw, dtype=bf))
-        for kind, label, kw in main]
+        for kind, label, kw in main] + edge
 
 
 def phase_train_correctness(torch, args, dev="cuda"):
@@ -1075,20 +1168,36 @@ def phase_train_correctness(torch, args, dev="cuda"):
     import numpy as np
     gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
     rng = np.random.default_rng(args.seed + 11)
-    worst = {n: 0.0 for pair in TRAIN_KERNELS.values() for n in pair}
+    from repro_torch.kernels import pard_attention as pa
+    worst = {n: 0.0 for n in TRAIN_NAMES}
     for kind, label, kw in train_correctness_cases(torch):
+        need = kw.pop("need", None)
         c = train_case(torch, gen, rng, kind, dev=dev, **kw)
+        if need:                  # the COD layout holds what the case is for
+            cls = pa.pard_tile_classes(c["seg"], c["base"])
+            dead = ~(c["seg"] > 0)
+            dead = torch.nn.functional.pad(
+                dead, (0, cls.shape[-1] * 64 - dead.shape[1]), value=True)
+            have = (int(dead.unflatten(1, (cls.shape[-1], 64)).all(-1).sum())
+                    if need == "padding" else int((cls == pa.FULL).sum()))
+            if not have:
+                raise SmokeFailure(f"{label}: the layout has no {need} tile")
         got = fwd_bwd(c, plain=False)
         _sync(torch, dev)
+        again = fwd_bwd(c, plain=False)
+        _sync(torch, dev)
+        if not all(torch.equal(x, y) for x, y in zip(got[1:], again[1:])):
+            raise SmokeFailure(f"{kind}: two backward calls differ ({label})")
         want = fwd_bwd(c, plain=True)
         tol = TOL[str(kw["dtype"]).split(".")[1]]
-        errs = {}
+        errs, worst_scaled = {}, 0.0
         for part, a, b in zip(("out", "dq", "dk", "dv"), got, want):
             if not torch.isfinite(a).all():
                 raise SmokeFailure(f"{kind} {part} not finite ({label})")
             diff = (a.float() - b.float()).abs()
             scaled = (diff / b.float().abs().clamp(min=1.0)).max().item()
             errs[part] = diff.max().item()
+            worst_scaled = max(worst_scaled, scaled)
             if not scaled <= tol:
                 raise SmokeFailure(f"{kind} {part} disagrees with the plain "
                                    f"version ({label}): {scaled} > {tol}")
@@ -1112,8 +1221,10 @@ def phase_train_correctness(torch, args, dev="cuda"):
         worst[bwd] = max(worst[bwd], errs["dq"], errs["dk"], errs["dv"])
         log(f"[train kernel vs plain] {kind} {label}: max_abs_err "
             + " ".join(f"{p}={e:.3e}" for p, e in errs.items())
-            + f" (check |err| <= {tol:g} * max(1, |plain|)); "
-            f"{n_dead} rows that see no key, all 0")
+            + f" (check |err| <= {tol:g} * max(1, |plain|): largest "
+            f"{worst_scaled:.3e}); "
+            f"{n_dead} rows that see no key, all 0; two backward calls "
+            f"bitwise equal")
     return worst
 
 
@@ -1174,14 +1285,23 @@ def phase_train_timing(torch, F, args, dev="cuda"):
                 return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["o"],
                                               c["lse"], c["dout"])
         else:
+            # the class table is made once per batch (PardMaskInfo.tiles),
+            # as in training: timed apart from the kernels
             def fwd(c):
-                return pa.pard_attention_fwd(c["q"], c["k"], c["v"], c["seg"],
-                                             c["base"])
+                return pa.pard_attention_fwd(c["q"], c["k"], c["v"], c["info"])
 
             def bwd(c):
-                return pa.pard_attention_bwd(c["q"], c["k"], c["v"], c["seg"],
-                                             c["base"], c["o"], c["lse"],
-                                             c["dout"])
+                return pa.pard_attention_bwd(c["q"], c["k"], c["v"], c["info"],
+                                             c["o"], c["lse"], c["dout"])
+            for c in sets:
+                c["info"] = pa.PardMaskInfo(c["seg"], c["base"])
+            ms_tiles = time_ms(torch, lambda c: pa.pard_tile_classes(
+                c["seg"], c["base"]), sets, 20)
+            cls = sets[0]["info"].tiles
+            log(f"[timing] pard tile classes B=4 T={first['q'].shape[1]}: "
+                f"{int((cls != pa.EMPTY).sum())} of {cls.numel()} tiles "
+                f"visited, {int((cls == pa.FULL).sum())} full; the table "
+                f"takes {ms_tiles:.4f} ms per batch")
         for c in sets:
             c["o"], c["lse"] = fwd(c)
         ms_f = time_ms(torch, fwd, sets, 20)
@@ -1195,11 +1315,10 @@ def phase_train_timing(torch, F, args, dev="cuda"):
 
         def graph(c, fn):
             q, k, v = (c[n].detach().requires_grad_(True) for n in "qkv")
-            return fn(q, k, v), (q, k, v)
+            return fn(q, k, v), (q, k, v), c["dout"]
 
         def grad_of(g):
-            return torch.autograd.grad(g[0], g[1], first["dout"],
-                                       retain_graph=True)
+            return torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
 
         plain_g = graph(first, train_attention(first, plain=True))
         plain_b = time_ms(torch, grad_of, [plain_g], 3)
@@ -1220,17 +1339,23 @@ def phase_train_timing(torch, F, args, dev="cuda"):
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     attn_mask=mask, enable_gqa=True)
         lib_f = time_ms(torch, lambda c: lib(c["q"], c["k"], c["v"]), sets, 10)
-        lib_g = graph(first, lambda q, k, v: lib(q, k, v).transpose(1, 2))
-        lib_b = time_ms(torch, grad_of, [lib_g], 5)
-        del lib_g
+        # SDPA's backward over the same rotating input sets as the kernel's
+        # (one graph per set); the single warm graph of earlier runs beside it
+        lib_gs = [graph(c, lambda q, k, v: lib(q, k, v).transpose(1, 2))
+                  for c in sets]
+        lib_b = time_ms(torch, grad_of, lib_gs, 10)
+        lib_b_warm = time_ms(torch, grad_of, lib_gs[:1], 5)
+        del lib_gs
         for name, ms, plain, libt, backward in (
                 (fwd_name, ms_f, plain_f, lib_f, False),
                 (bwd_name, ms_b, plain_b, lib_b, True)):
             bnd, by = train_bound_ms(torch, first, backward)
+            warm = (f" (one warm graph: {lib_b_warm:.4f} ms)" if backward
+                    else "")
             log(f"[timing] {name} B=4 T={first['q'].shape[1]} Hq=32 Hkv=8 "
                 f"D={kw['d']} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"sdpa {libt:.4f} ms, bound {bnd:.5f} ms ({by}); {len(sets)} "
-                f"input sets")
+                f"sdpa {libt:.4f} ms{warm}, bound {bnd:.5f} ms ({by}); "
+                f"{len(sets)} input sets")
             results.setdefault(name, dict(ms=ms, plain_ms=plain,
                                           library_ms=libt, bound_ms=bnd,
                                           bound_by=by))
@@ -1260,7 +1385,9 @@ def compare_plain_step(torch, kernels, tr, params, batch):
         for route in ("kernels", "plain"):
             if route == "plain":
                 model_attention.flash_attention = fa.flash_attention_ref
-                model_attention.pard_attention = pa.pard_attention_ref
+                model_attention.pard_attention = (
+                    lambda q, k, v, info, **kw: pa.pard_attention_ref(
+                        q, k, v, info.segment, info.base, **kw))
             for p in leaves(params):
                 p.requires_grad_(True)
                 p.grad = None

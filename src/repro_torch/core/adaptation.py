@@ -33,9 +33,9 @@ def pard_adaptation_loss(params, cfg, batch, *, k_max: int = 0,
     position_ids, labels, segment, base; int). Returns (loss, metrics):
     ``loss_subtask_s`` for s = 1..k_max with Eq. 8, ``token_mean_nll`` and
     ``n_loss_tokens``, all tensors."""
-    seg = batch["segment"].to(torch.int32)
-    mask_info = PardMaskInfo(seg.contiguous(),
-                             batch["base"].to(torch.int32).contiguous())
+    seg = batch["segment"].to(torch.int32).contiguous()
+    base = batch["base"].to(torch.int32).contiguous()
+    mask_info = PardMaskInfo(seg, base)
     logits, _ = forward(params, cfg, batch["input_ids"],
                         positions=batch["position_ids"], mask_info=mask_info,
                         dtype=dtype, remat=remat)

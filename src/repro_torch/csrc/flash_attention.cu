@@ -12,10 +12,11 @@
 //
 // Query i and key j count from 0; key j is visible iff j < S, j <= i (when
 // causal) and j > i - window (when window > 0). Unlike the TPU wrapper, T
-// and S are not padded: the tiles mask their ragged edge. The tile loop,
-// the mask and what bounds it are in train_attention_tile.cuh.
+// and S are not padded: the tiles mask their ragged edge. bfloat16 runs on
+// the tensor cores (train_attention_mma.cuh: the design and what bounds
+// it), float32 on the f32 loop of train_attention_tile.cuh.
 
-#include "train_attention_tile.cuh"
+#include "train_attention_mma.cuh"
 
 // dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = ok).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
@@ -36,5 +37,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   a.scale = scale;
   a.softcap = softcap;
   const tattn::CausalMask m{causal, window};
-  return tattn::dispatch<false>(a, m, d, dtype, stream);
+  return tmma::dispatch<false>(a, m, d, dtype, stream);
 }
+
+// The largest dynamic shared memory, in bytes, of this file's bfloat16
+// kernels at head dim d (0 for a head dim not built).
+extern "C" int flash_attention_smem(int d) { return tmma::smem_bytes(false, d); }

@@ -14,9 +14,10 @@
 //
 // Three passes on the stream: delta, then dK/dV (one block per 64 keys of a
 // kv head, over its G query heads), then dQ. No atomics: deterministic.
-// The passes and what bounds them are in train_attention_tile.cuh.
+// The passes and what bounds them are in train_attention_mma.cuh
+// (bfloat16, tensor cores) and train_attention_tile.cuh (float32).
 
-#include "train_attention_tile.cuh"
+#include "train_attention_mma.cuh"
 
 // dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = ok).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -43,5 +44,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   a.scale = scale;
   a.softcap = softcap;
   const tattn::CausalMask m{causal, window};
-  return tattn::dispatch<true>(a, m, d, dtype, stream);
+  return tmma::dispatch<true>(a, m, d, dtype, stream);
 }
+
+// The largest dynamic shared memory, in bytes, of this file's bfloat16
+// kernels at head dim d (0 for a head dim not built).
+extern "C" int flash_attention_bwd_smem(int d) { return tmma::smem_bytes(true, d); }

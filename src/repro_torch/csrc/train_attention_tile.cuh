@@ -1,5 +1,7 @@
-// Training attention for Hopper (sm_90a): the forward online-softmax loop
-// and its backward, shared by the port's full-sequence kernels.
+// Training attention for Hopper (sm_90a): the float32 forward
+// online-softmax loop and its backward, and the arguments, masks, tile
+// classes and Δ pass that the bfloat16 kernels of train_attention_mma.cuh
+// share, for the port's full-sequence kernels.
 //
 //   flash_attention.cu      forward, causal mask (+ window, key count)
 //   flash_attention_bwd.cu  backward, causal mask
@@ -29,12 +31,14 @@
 // (query, key) pair costs 2 * D multiply-adds forward and 5 * D backward
 // against bytes that are read once per tile, far above the card's
 // balance point, so the tensor cores' 989 TFLOP/s (bf16) are the bound.
-// This first version is correct and simple: f32 FMA on the CUDA cores,
-// tiles of 64 rows x 64 columns staged in shared memory (converted to f32
-// once), no wgmma, TMA or warp specialisation yet. It skips every 64 x 64
-// (query, key) tile that the mask empties: the causal range bounds the
-// sweep (above the diagonal, below the window), and a per-tile test of the
-// mask skips the rest (COD: padding, other chains).
+// This file now serves float32 only: the bfloat16 instances run on the
+// tensor cores in train_attention_mma.cuh. The float32 loop is the
+// kernels' exactness check on the card (tolerance 1e-4, which TF32 tensor
+// cores would break) and is off the training path (bf16 activations):
+// f32 FMA on the CUDA cores, tiles of 64 rows x 64 columns staged in
+// shared memory (converted to f32 once), a per-tile test of the mask
+// (`any_allowed`) to skip the tiles that the mask empties, and the causal
+// range bounding the sweep.
 //
 // Backward (no float atomics, so gradients are deterministic):
 //   1. delta_kernel: Δ = rowsum(dO ∘ O) per (b, i, h).
@@ -64,10 +68,17 @@ constexpr int kTile = 64;                  // rows per block, columns per chunk
 constexpr int kRowsPerWarp = kTile / kWarps;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Classes of a (64-query tile, 64-key tile) pair, as the plain Python
+// functions flash_tile_classes / pard_tile_classes compute them: no pair
+// allowed (no copy, no math), some pairs allowed (the per-element mask),
+// every pair allowed (no mask). A tile holding a row past T, a key past S
+// or a padding token is never full.
+constexpr int kEmpty = 0;
+constexpr int kPartial = 1;
+constexpr int kFull = 2;
 
 struct CausalMask {
+  static constexpr bool kStaged = false;  // a key's metadata is its index
   int causal;
   int window;
   __device__ __forceinline__ int2 meta(int, int i, int) const { return make_int2(i, 0); }
@@ -85,19 +96,36 @@ struct CausalMask {
     lo = causal ? k0 : 0;
     hi = window > 0 ? min(t, k1 - 1 + window) : t;
   }
+  // the class of query tile qt against key tile kt, from the indices
+  __device__ __forceinline__ int tile_class(int, int qt, int kt, int t, int s) const {
+    const int q0 = qt * kTile, k0 = kt * kTile;
+    const int q1 = min(q0 + kTile, t), k1 = min(k0 + kTile, s);
+    if (q0 >= t || k0 >= s || (causal && k0 > q1 - 1) ||
+        (window > 0 && k1 - 1 <= q0 - window))
+      return kEmpty;
+    const bool whole = q0 + kTile <= t && k0 + kTile <= s;
+    if (whole && (!causal || k0 + kTile - 1 <= q0) &&
+        (window <= 0 || k0 > q0 + kTile - 1 - window))
+      return kFull;
+    return kPartial;
+  }
 };
 
 struct CodMask {
+  static constexpr bool kStaged = true;   // a key's (segment, base) is staged
   const int* seg;   // [B, T]
   const int* base;  // [B, T]
+  // [B, nt, nt] uint8 classes of (query tile, key tile), nt = ceil(T / 64),
+  // from pard_tile_classes (read by the bfloat16 kernels only)
+  const unsigned char* tiles;
   __device__ __forceinline__ int2 meta(int b, int i, int n) const {
     const size_t at = static_cast<size_t>(b) * n + i;
     return make_int2(seg[at], base[at]);
   }
+  // the three rules above, regrouped by the key's segment
   __device__ __forceinline__ bool ok(int2 q, int2 k) const {
-    if (q.x <= 0 || k.x <= 0) return false;
-    return (k.x == 1 && k.y < q.y) || (k.x > 1 && k.x < q.x && k.y == q.y) ||
-           (k.x == q.x && k.y == q.y);
+    if (k.x == 1) return q.x > 0 && (k.y < q.y || (q.x == 1 && k.y == q.y));
+    return k.x > 1 && k.x <= q.x && k.y == q.y;
   }
   __device__ __forceinline__ void keys(int, int, int s, int& lo, int& hi) const {
     lo = 0;
@@ -106,6 +134,10 @@ struct CodMask {
   __device__ __forceinline__ void queries(int, int, int t, int& lo, int& hi) const {
     lo = 0;
     hi = t;
+  }
+  __device__ __forceinline__ int tile_class(int b, int qt, int kt, int t, int) const {
+    const int nt = (t + kTile - 1) / kTile;
+    return tiles[(static_cast<size_t>(b) * nt + qt) * nt + kt];
   }
 };
 
@@ -313,29 +345,37 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a, M mask) {
 // backward
 // ---------------------------------------------------------------------------
 
-// Δ[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]; one warp per row
+// Δ[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]; one thread per row,
+// 16-byte loads (both dtypes; the bfloat16 kernels use it too)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) delta_kernel(Args a) {
-  const int lane = threadIdx.x & 31;
-  const size_t row = static_cast<size_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  const size_t rows = static_cast<size_t>(a.b) * a.t * a.hq;
-  if (row >= rows) return;
+  constexpr int V = attn::Vec<T>::N;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= static_cast<size_t>(a.b) * a.t * a.hq) return;
   const T* o = static_cast<const T*>(a.o) + row * D;
   const T* g = static_cast<const T*>(a.dout) + row * D;
   float sum = 0.f;
 #pragma unroll
-  for (int c = 0; c < attn::padded_dim<D>() / 32; ++c) {
-    const int d = lane + 32 * c;
-    if (d < D) sum = fmaf(to_f(o[d]), to_f(g[d]), sum);
+  for (int c = 0; c < D; c += V) {
+    float x[V], y[V];
+    attn::Vec<T>::load(o + c, x);
+    attn::Vec<T>::load(g + c, y);
+#pragma unroll
+    for (int e = 0; e < V; ++e) sum = fmaf(x[e], y[e], sum);
   }
-  sum = attn::warp_sum(sum);
-  if (lane == 0) {
-    const int h = static_cast<int>(row % a.hq);
-    const size_t bi = row / a.hq;  // b * t + i
-    const int i = static_cast<int>(bi % a.t);
-    const int b = static_cast<int>(bi / a.t);
-    a.delta[(static_cast<size_t>(b) * a.hq + h) * a.t + i] = sum;
-  }
+  const int h = static_cast<int>(row % a.hq);
+  const size_t bi = row / a.hq;  // b * t + i
+  const int i = static_cast<int>(bi % a.t);
+  const int b = static_cast<int>(bi / a.t);
+  a.delta[(static_cast<size_t>(b) * a.hq + h) * a.t + i] = sum;
+}
+
+// launches delta_kernel on the stream
+template <typename T, int D>
+cudaError_t delta_launch(const Args& a, cudaStream_t st) {
+  const size_t rows = static_cast<size_t>(a.b) * a.t * a.hq;
+  delta_kernel<T, D><<<static_cast<unsigned>((rows + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -613,10 +653,7 @@ cudaError_t fwd_launch(const Args& a, const M& m, cudaStream_t st) {
 
 template <typename T, int D, class M>
 cudaError_t bwd_launch(const Args& a, const M& m, cudaStream_t st) {
-  const size_t rows = static_cast<size_t>(a.b) * a.t * a.hq;
-  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
-  delta_kernel<T, D><<<blocks, kThreads, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = delta_launch<T, D>(a, st);
   if (err != cudaSuccess) return err;
 
   auto kv_kern = dkdv_kernel<T, D, M>;
@@ -637,33 +674,23 @@ cudaError_t bwd_launch(const Args& a, const M& m, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and every output alike).
+// The float32 instances (the bfloat16 ones are in train_attention_mma.cuh).
 // Returns a cudaError_t (0 = ok).
 template <bool kBackward, class M>
-int dispatch(const Args& a, const M& m, int d, int dtype, void* stream) {
-  if (a.b <= 0 || a.t <= 0 || a.s <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TATTN_CASE(T, DD)                                                 \
-  if (d == DD) {                                                          \
-    if constexpr (kBackward)                                              \
-      return static_cast<int>(bwd_launch<T, DD, M>(a, m, st));            \
-    else                                                                  \
-      return static_cast<int>(fwd_launch<T, DD, M>(a, m, st));            \
+cudaError_t launch_f32(const Args& a, const M& m, int d, cudaStream_t st) {
+#define TATTN_CASE(DD)                                 \
+  if (d == DD) {                                       \
+    if constexpr (kBackward)                           \
+      return bwd_launch<float, DD, M>(a, m, st);       \
+    else                                               \
+      return fwd_launch<float, DD, M>(a, m, st);       \
   }
-  if (dtype == 0) {
-    TATTN_CASE(float, 32)
-    TATTN_CASE(float, 48)
-    TATTN_CASE(float, 64)
-    TATTN_CASE(float, 128)
-  } else if (dtype == 1) {
-    TATTN_CASE(__nv_bfloat16, 32)
-    TATTN_CASE(__nv_bfloat16, 48)
-    TATTN_CASE(__nv_bfloat16, 64)
-    TATTN_CASE(__nv_bfloat16, 128)
-  }
+  TATTN_CASE(32)
+  TATTN_CASE(48)
+  TATTN_CASE(64)
+  TATTN_CASE(128)
 #undef TATTN_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tattn

@@ -23,6 +23,11 @@ import torch
 
 from .decode_attention import _DTYPE_CODE, _HEAD_DIMS, attend, launch, on_card, ptr
 
+# Tiles of the bfloat16 kernels: 64 queries x 64 keys, each in one class
+# (csrc/train_attention_tile.cuh, tattn::kEmpty / kPartial / kFull)
+TILE = 64
+EMPTY, PARTIAL, FULL = 0, 1, 2
+
 
 def flash_allowed(t: int, s: int, *, causal=True, window=0, device=None):
     """Boolean [T, S] visibility of key j to query i."""
@@ -34,6 +39,27 @@ def flash_allowed(t: int, s: int, *, causal=True, window=0, device=None):
     if window:
         allowed &= kp > qp - window
     return allowed
+
+
+def flash_tile_classes(t: int, s: int, *, causal=True, window=0, device=None):
+    """uint8 [nq, nk] class of each (64-query tile, 64-key tile) pair, from
+    the indices alone, as the kernels' ``CausalMask::tile_class`` computes
+    it: EMPTY (no pair allowed), FULL (every pair allowed: no row past
+    ``t``, no key past ``s``) or PARTIAL."""
+    q0 = torch.arange(0, t, TILE, device=device)[:, None]
+    k0 = torch.arange(0, s, TILE, device=device)[None, :]
+    q1, k1 = (q0 + TILE).clamp(max=t), (k0 + TILE).clamp(max=s)
+    empty = torch.zeros(q0.shape[0], k0.shape[1], dtype=torch.bool,
+                        device=device)
+    full = (q0 + TILE <= t) & (k0 + TILE <= s)
+    if causal:
+        empty |= k0 > q1 - 1
+        full &= k0 + TILE - 1 <= q0
+    if window > 0:
+        empty |= k1 - 1 <= q0 - window
+        full &= k0 > q0 + TILE - 1 - window
+    return torch.where(empty, EMPTY, torch.where(full, FULL, PARTIAL)).to(
+        torch.uint8)
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,

@@ -164,8 +164,7 @@ def gqa_apply(params, cfg, x, *, layer_window: int = 0, cache=None,
     if cache is None:
         k, v = k.contiguous(), v.contiguous()
         if mask_info is not None:
-            out = pard_attention(q, k, v, mask_info.segment, mask_info.base,
-                                 **kw)
+            out = pard_attention(q, k, v, mask_info, **kw)
         else:
             out = flash_attention(q, k, v, causal=True, window=layer_window,
                                   **kw)

@@ -435,8 +435,8 @@ def test_pard_kernels_match_plain(cuda, b, n, kk, hq, hkv, d, softcap, dtype,
     q, k, v, dout = _train_inputs(cuda, b, t, t, hq, hkv, d, dtype)
     before = (kernels.launches["pard_attention"],
               kernels.launches["pard_attention_bwd"])
-    got = _fwd_bwd(lambda *x: pa.pard_attention(*x, seg, base,
-                                                softcap=softcap),
+    info = pa.PardMaskInfo(seg, base)
+    got = _fwd_bwd(lambda *x: pa.pard_attention(*x, info, softcap=softcap),
                    q, k, v, dout)
     torch.cuda.synchronize()
     assert (kernels.launches["pard_attention"],
@@ -451,6 +451,82 @@ def test_pard_kernels_match_plain(cuda, b, n, kk, hq, hkv, d, softcap, dtype,
         assert (x[pad] == 0).all()
 
 
+def _cod_inputs(dev, b, n, kk, extra, seed):
+    from repro_torch.core.cod import CodConfig, pack_batch
+    rng = np.random.default_rng(seed)
+    packed = pack_batch(rng.integers(0, 1000, (b, n)),
+                        CodConfig(kk, 0.7, 0.2), 1000, seed=seed)
+    pad = np.zeros((b, extra), np.int32)
+    return [torch.from_numpy(np.concatenate([packed[f], pad], 1)).to(
+        dev, torch.int32) for f in ("segment", "base")]
+
+
+# where the tensor-core tiles can break: one row, a row off the tile, T one
+# short of the training length, and rows that see no key (S < T, window)
+@pytest.mark.parametrize("t,s,window,hq,hkv", [
+    (1, 1, 0, 4, 2), (65, 65, 0, 4, 1), (1023, 1023, 0, 4, 2),
+    (300, 128, 40, 4, 2)])
+@pytest.mark.parametrize("d", [32, 48, 64, 128])
+def test_flash_kernels_at_tile_edges(cuda, t, s, window, hq, hkv, d):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, dout = _train_inputs(cuda, 2, t, s, hq, hkv, d, torch.bfloat16,
+                                  seed=t + d)
+    got = _fwd_bwd(lambda *x: fa.flash_attention(*x, window=window), q, k, v,
+                   dout)
+    want = _fwd_bwd(lambda *x: fa.flash_attention_ref(*x, window=window), q,
+                    k, v, dout)
+    _assert_grads_close(got, want, 2e-2)
+    if window:
+        dead = torch.arange(t, device=cuda) >= s + window - 1
+        assert dead.any()
+        assert (got[0][:, dead] == 0).all() and (got[1][:, dead] == 0).all()
+
+
+# a 64-token tile of padding only (classed empty both ways), and a layout
+# with tiles classed full (no per-element mask)
+@pytest.mark.parametrize("n,kk,extra,need", [(100, 8, 130, "padding"),
+                                             (256, 4, 0, "full")])
+@pytest.mark.parametrize("d", [32, 48, 64, 128])
+def test_pard_kernels_at_tile_classes(cuda, n, kk, extra, need, d):
+    from repro_torch.kernels import pard_attention as pa
+    seg, base = _cod_inputs(cuda, 2, n, kk, extra, seed=n + d)
+    cls = pa.pard_tile_classes(seg, base)
+    if need == "full":
+        assert (cls == pa.FULL).any()
+    else:
+        assert (cls == pa.EMPTY).all(-1).any()
+    t = seg.shape[1]
+    q, k, v, dout = _train_inputs(cuda, 2, t, t, 4, 2, d, torch.bfloat16,
+                                  seed=d)
+    info = pa.PardMaskInfo(seg, base)
+    got = _fwd_bwd(lambda *x: pa.pard_attention(*x, info), q, k, v, dout)
+    want = _fwd_bwd(lambda *x: pa.pard_attention_ref(*x, seg, base), q, k, v,
+                    dout)
+    _assert_grads_close(got, want, 2e-2)
+    for x in got:
+        assert (x[seg == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_training_backward_is_deterministic(cuda, dtype):
+    """No float atomics: two backward calls give bitwise-equal gradients."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pard_attention as pa
+    q, k, v, dout = _train_inputs(cuda, 2, 333, 333, 8, 2, 64, dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    b = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    seg, base = _cod_inputs(cuda, 2, 200, 8, 5, seed=3)
+    t = seg.shape[1]
+    q, k, v, dout = _train_inputs(cuda, 2, t, t, 8, 2, 64, dtype)
+    info = pa.PardMaskInfo(seg, base)
+    out, lse = pa.pard_attention_fwd(q, k, v, info)
+    a = pa.pard_attention_bwd(q, k, v, info, out, lse, dout)
+    b = pa.pard_attention_bwd(q, k, v, info, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_training_kernels_reject_what_they_do_not_take(cuda):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pard_attention as pa
@@ -462,9 +538,12 @@ def test_training_kernels_reject_what_they_do_not_take(cuda):
                            v[..., :40].contiguous())
     seg = torch.ones(1, 16, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):                  # int64 metadata
-        pa.pard_attention(q, k, v, seg.long(), seg)
+        pa.pard_attention(q, k, v, pa.PardMaskInfo(seg.long(), seg))
     with pytest.raises(ValueError):                 # metadata on the host
-        pa.pard_attention(q, k, v, seg.cpu(), seg)
+        pa.pard_attention(q, k, v, pa.PardMaskInfo(seg.cpu(), seg))
+    with pytest.raises(ValueError):                 # metadata of 17 tokens
+        pa.pard_attention(q, k, v, pa.PardMaskInfo(
+            torch.ones(1, 17, dtype=torch.int32, device=cuda), seg))
 
 
 def test_trainer_on_card_matches_cpu(cuda):

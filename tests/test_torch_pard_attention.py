@@ -61,8 +61,8 @@ def test_pard_plain_matches_jax(b, n, k, extra, hq, hkv, d, softcap):
     seg, base = _layout(n, b, n, k, extra)
     t = seg.shape[1]
     q, kk, v, _ = _inputs(n, b, t, hq, hkv, d)
-    got = pa.pard_attention(*(torch.from_numpy(x) for x in (q, kk, v, seg,
-                                                            base)),
+    info = pa.PardMaskInfo(torch.from_numpy(seg), torch.from_numpy(base))
+    got = pa.pard_attention(*(torch.from_numpy(x) for x in (q, kk, v)), info,
                             softcap=softcap).numpy()
     jargs = [jnp.asarray(x) for x in (q, kk, v, seg, base)]
     live = seg > 0
@@ -80,8 +80,9 @@ def test_pard_plain_grads_match_jax(b, n, k, extra, hq, hkv, d, softcap):
     q, kk, v, cot = _inputs(n + 1, b, t, hq, hkv, d)
     cot = cot * (seg > 0)[:, :, None, None]
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, kk, v))
-    (pa.pard_attention(tq, tk, tv, torch.from_numpy(seg),
-                       torch.from_numpy(base), softcap=softcap)
+    (pa.pard_attention(tq, tk, tv, pa.PardMaskInfo(torch.from_numpy(seg),
+                                                   torch.from_numpy(base)),
+                       softcap=softcap)
      * torch.from_numpy(cot)).sum().backward()
     want = jax.grad(lambda a, b_, c: jnp.sum(ref.pard_attention_ref(
         a, b_, c, jnp.asarray(seg), jnp.asarray(base), softcap=softcap)
@@ -111,10 +112,11 @@ def test_pard_mask_matches_jax():
 def test_pard_inputs_checked():
     q = torch.randn(1, 8, 2, 32)
     seg = torch.ones(1, 8, dtype=torch.int32)
+    info = pa.PardMaskInfo
     with pytest.raises(ValueError, match="self-attention"):
-        pa._check(q, q[:, :6], q[:, :6], seg, seg)
+        pa._check(q, q[:, :6], q[:, :6], info(seg, seg))
     with pytest.raises(TypeError, match="int32"):
-        pa._check(q, q, q, seg.long(), seg)
+        pa._check(q, q, q, info(seg.long(), seg))
     with pytest.raises(ValueError, match="shape"):
-        pa._check(q, q, q, seg[:, :7], seg)
-    pa._check(q, q, q, seg, seg)
+        pa._check(q, q, q, info(seg[:, :7], seg))
+    pa._check(q, q, q, info(seg, seg))
