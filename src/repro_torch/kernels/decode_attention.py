@@ -12,13 +12,14 @@ window (Tq = 2K), the verify window (Tq = K+1) and prompt chunks.
 Each wrapper launches its kernel (``csrc/decode_attention_paged.cu``,
 ``csrc/decode_attention.cu``) for CUDA tensors and takes the plain version
 only for CPU tensors. The helpers shared with ``tree_attention`` (the
-masked f32 core ``attend``, the input checks and the launcher) live here.
+masked f32 core ``attend``, the input checks, the launcher and the paged
+kernels' split-KV plan ``split_kv_plan``) live here.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +29,41 @@ NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 48, 64, 128)
+
+# the bf16 tensor-core loop of the paged kernels (csrc/serve_attention_mma.cuh)
+MAX_WARPS = 8           # 16 query rows each: 128 rows per CTA
+MAX_CLUSTER = 8         # the portable thread-block cluster size
+KEY_CHUNK = 64          # keys per cp.async ring stage
+
+
+def split_kv_plan(b: int, hkv: int, rows: int, reach: int,
+                  sms: int) -> Tuple[int, int]:
+    """(cluster size cs, warps with rows per CTA) of the bf16 loop.
+
+    ``rows`` = Tq * G query rows per kv head, ``reach`` = MBS * block
+    positions a block table can name, ``sms`` the card's SM count. The rows
+    split into balanced tiles of at most 128 (``warps`` * 16 rows each,
+    one CTA of 8 warps per tile, all of which copy);
+    the B * Hkv * tiles groups each take a cluster of ``cs`` CTAs that
+    split the group's visible keys in 64-key chunks: as many as keep the
+    CTAs within 90 % of the SMs, at most 8, and no more than the reach has
+    chunks. A CTA holds an SM, and a cluster needs cs SMs of one GPC; the
+    10 % left over keeps all clusters in one wave (on an H100, 32 clusters
+    of 4 did not fit at once). A function of integers the host knows, never
+    of a device value, so a call can be captured in a CUDA graph and
+    replayed with other kv_len.
+    """
+    args = (b, hkv, rows, reach, sms)
+    if not all(isinstance(x, int) and not isinstance(x, bool) for x in args):
+        raise TypeError(f"split_kv_plan takes Python ints, got "
+                        f"{[type(x).__name__ for x in args]}")
+    if min(args) < 1:
+        raise ValueError(f"split_kv_plan needs positive sizes, got {args}")
+    tiles = -(-rows // (16 * MAX_WARPS))
+    warps = -(-rows // (16 * tiles))
+    cs = min(MAX_CLUSTER, sms * 9 // 10 // (b * hkv * tiles),
+             -(-reach // KEY_CHUNK))
+    return max(1, cs), warps
 
 
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -176,6 +212,17 @@ def dims(q, k, scale, window, softcap):
     return head, tail
 
 
+def plan_args(q, k_pages, block_tables):
+    """The paged kernels' trailing (cluster, warps) ctypes arguments, from
+    shapes and the card's SM count alone (``split_kv_plan``)."""
+    b, tq, hq, _ = q.shape
+    hkv = k_pages.shape[2]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = split_kv_plan(b, hkv, tq * (hq // hkv),
+                         block_tables.shape[1] * k_pages.shape[1], sms)
+    return tuple(ctypes.c_int(x) for x in plan)
+
+
 def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
                            *, k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None, window=0,
@@ -185,7 +232,9 @@ def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
     q: [B, Tq, Hq, D]; k_pages, v_pages: [NB, block, Hkv, D] (block 0 is
     the reserved garbage block); block_tables: [B, MBS] int32; kv_len: [B]
     int32; q_pos: [B, Tq] int32. Returns [B, Tq, Hq, D] in q's dtype.
-    Quantized pools (``k_scale`` / ``v_scale``) are not ported yet.
+    Quantized pools (``k_scale`` / ``v_scale``) are not ported yet. On the
+    card, q and the pools in bf16 take the split-KV tensor-core loop; the
+    call reads no device value and allocates only its output.
     """
     check_scales(k_scale, v_scale)
     b, tq, _, d = q.shape
@@ -203,7 +252,8 @@ def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
     head, tail = dims(q, k_pages, scale, window, softcap)
     launch("decode_attention_paged", q, ptr(q), ptr(k_pages), ptr(v_pages),
            ptr(block_tables), ptr(kv_len), ptr(q_pos), ptr(out), *head,
-           *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail)
+           *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail,
+           *plan_args(q, k_pages, block_tables))
     return out
 
 

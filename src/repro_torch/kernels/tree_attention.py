@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .decode_attention import (attend, check_inputs, check_scales, dims,
-                               gather_pages, launch, on_card, ptr)
+                               gather_pages, launch, on_card, plan_args, ptr)
 
 MAX_SLOTS = 32          # one uint32 ancestor mask per query
 
@@ -138,7 +138,8 @@ def tree_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
     [B] int32; anc: [B, Tq] ancestor bitmasks (int64, or int32 bits);
     win_len: optional [B] int32 meaningful window slots (None = Tq).
     Returns [B, Tq, Hq, D] in q's dtype. Quantized pools are not ported
-    yet.
+    yet. On the card, q and the pools in bf16 take the split-KV
+    tensor-core loop; the call reads no device value.
     """
     check_scales(k_scale, v_scale)
     b, tq, _, d = q.shape
@@ -160,7 +161,8 @@ def tree_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
     launch("tree_attention_paged", q, ptr(q), ptr(k_pages), ptr(v_pages),
            ptr(block_tables), ptr(kv_len), ptr(q_pos), ptr(win_start),
            ptr(win_len), ptr(anc32), ptr(out), *head,
-           *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail)
+           *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail,
+           *plan_args(q, k_pages, block_tables))
     return out
 
 

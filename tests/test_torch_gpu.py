@@ -301,6 +301,85 @@ def test_tree_kernels_reject_what_they_do_not_take(cuda):
                           v_scale=cont["kv_len"])
 
 
+# bf16 q and KV in the paged kernels take the tensor-core split-KV loop
+# (csrc/serve_attention_mma.cuh): its edges, determinism and graph capture
+BF = torch.bfloat16
+
+
+@pytest.mark.parametrize("b,tq,hq,hkv,d,bs,kv_len,window,softcap", [
+    (4, 9, 32, 8, 128, 64, [4096, 70, 1, 0], 0, 0.0),   # empty splits, no key
+    (1, 9, 32, 8, 128, 64, [4000], 100, 30.0),          # window removes splits
+    (4, 16, 56, 8, 128, 16, [16, 300, 1000, 2500], 0, 0.0),  # G 7: 112 rows
+    (2, 36, 14, 2, 64, 64, [36, 777], 0, 0.0),          # G 7: 2 tiles of 128
+    (4, 8, 4, 2, 32, 8, [8, 30, 95, 200], 0, 0.0),      # pages of 8
+    (4, 16, 4, 2, 48, 16, [1, 64, 65, 600], 0, 20.0),   # D 48, pages of 16
+])
+def test_split_kv_decode_edges(cuda, b, tq, hq, hkv, d, bs, kv_len, window,
+                               softcap):
+    case = _case(cuda, b, tq, hq, hkv, d, bs, kv_len, BF, BF)
+    out = da.decode_attention_paged(**case, window=window, softcap=softcap)
+    want = da.decode_attention_paged_ref(**case, window=window,
+                                         softcap=softcap)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,tq,hq,hkv,d,bs,window,softcap,dead", [
+    (4, 31, 32, 8, 128, 64, 0, 0.0, True),      # a row that sees no key
+    (2, 31, 14, 2, 64, 16, 0, 0.0, False),      # G 7: 217 rows, 2 tiles
+    (1, 23, 32, 8, 128, 64, 64, 30.0, False),   # window, softcap, B 1
+    (4, 11, 4, 2, 32, 8, 0, 0.0, True),         # pages of 8
+])
+def test_split_kv_tree_edges(cuda, b, tq, hq, hkv, d, bs, window, softcap,
+                             dead):
+    case, _ = _tree_case(cuda, b, tq, hq, hkv, d, bs, BF, BF, seed=5)
+    if dead:                  # no context, no window slot: sees no key
+        case["win_start"][0] = 0
+        case["win_len"][0] = 0
+    out = ta.tree_attention_paged(**case, window=window, softcap=softcap)
+    want = ta.tree_attention_paged_ref(**case, window=window,
+                                       softcap=softcap)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    if dead:
+        assert not out[0].any()
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_split_kv_bitwise_and_graph_replay(cuda, tree):
+    """Two calls are bitwise equal; a call captured in a CUDA graph and
+    replayed after kv_len and q_pos are rewritten in place matches the
+    plain version on the new values (the wrapper reads no device value)."""
+    if tree:
+        case, _ = _tree_case(cuda, 4, 31, 32, 8, 128, 64, BF, BF, seed=3)
+        fn, ref = ta.tree_attention_paged, ta.tree_attention_paged_ref
+        kw = dict(window=100)
+    else:
+        case = _case(cuda, 4, 9, 32, 8, 128, 64, [300, 1000, 2049, 4000],
+                     BF, BF)
+        fn, ref = da.decode_attention_paged, da.decode_attention_paged_ref
+        kw = {}
+    assert torch.equal(fn(**case, **kw), fn(**case, **kw))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(**case, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(**case, **kw)
+    if tree:
+        case["kv_len"] -= 2
+        case["q_pos"] += 1
+    else:
+        case["kv_len"] -= 37
+        case["q_pos"] -= 37
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref(**case, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
 def test_tree_and_contiguous_engines_on_card(cuda):
     """Tiny fp32 engines on the card: tree greedy == AR, a chain == flat
     K, paged == contiguous, adaptive lossless; every attention layer of

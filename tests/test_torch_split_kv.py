@@ -1,0 +1,349 @@
+"""The split-KV plan and arithmetic of the paged kernels' bf16 loop.
+
+``csrc/serve_attention_mma.cuh`` runs ``decode_attention_paged`` and
+``tree_attention_paged`` for bf16 inputs on the card: the host plan
+``split_kv_plan`` picks a cluster of ``cs`` CTAs per (batch row, kv head,
+row tile); on the device each CTA takes a balanced share of the tile's
+64-key chunks of its visible range, runs an online softmax over them
+with P rounded to bf16 for the P V product, and one CTA per row merges
+the ``cs`` partials (O, m, l) in split order. No CUDA runs here: the
+plan is tested as the integer function it is, and ``emulate`` below
+repeats the kernel's arithmetic in f32 torch, chunk by chunk, and is
+held against the port's plain versions and the JAX package's oracles
+``repro.kernels.ref.decode_attention_paged_ref`` /
+``tree_attention_paged_ref`` on the same numpy inputs.
+
+Tolerances: with P kept in f32 the emulation differs from the plain
+versions only in summation order (atol = rtol = 1e-5). Rounding P to
+bf16 moves each p_j by at most 2^-9 p_j, and an output is a convex
+combination of V rows, so it moves by at most 2^-9 max|v| (asserted with
+1e-5 for the f32 sums). Rows that see no key are 0 in the port; the JAX
+jnp oracle returns garbage there (ROADMAP.md, section C), so they are
+left out of the comparison with JAX.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro_torch.core.spec_decode import TreeTemplate
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import tree_attention as ta
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+SMS = 132                                   # an H100's SMs
+KEYS = da.KEY_CHUNK
+LOG2E = 1.4426950408889634
+NEG = -1e30
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------------ plan
+@pytest.mark.parametrize("name,b,hkv,rows,reach,want", [
+    ("verify window G4 x Tq9", 4, 8, 36, 1024, (3, 3)),
+    ("draft window G4 x Tq16", 4, 8, 64, 1024, (3, 4)),
+    ("tree window G4 x Tq31", 4, 8, 124, 1024, (3, 8)),
+    ("prefill chunk G4 x Tq8", 4, 8, 32, 1024, (3, 2)),
+    ("prompt chunk of 256", 4, 8, 1024, 1024, (1, 8)),
+    ("B = 1", 1, 8, 36, 4096, (8, 3)),
+    ("G = 7 x Tq 16: 112 rows", 4, 2, 112, 1024, (8, 7)),
+    ("G = 7 x Tq 31: 217 rows, two tiles", 4, 2, 217, 1024, (7, 7)),
+    ("G = 7 x Tq 36: 252 rows, two tiles", 2, 2, 252, 1024, (8, 8)),
+    ("reach below 64 cs", 1, 8, 36, 100, (2, 3)),
+    ("reach of one key", 1, 1, 1, 1, (1, 1)),
+])
+def test_plan_at_main_and_edge_shapes(name, b, hkv, rows, reach, want):
+    cs, warps = da.split_kv_plan(b, hkv, rows, reach, SMS)
+    assert (cs, warps) == want, name
+    tiles = -(-rows // (16 * warps))
+    assert 1 <= cs <= da.MAX_CLUSTER and 1 <= warps <= da.MAX_WARPS
+    assert tiles * warps * 16 >= rows > tiles * (warps - 1) * 16
+    assert cs <= -(-reach // KEYS)
+    # one wave: the CTAs stay within 90 % of the SMs unless cs is 1
+    assert cs == 1 or b * hkv * tiles * cs <= SMS * 9 // 10
+
+
+def test_plan_sweep_bounds():
+    for b in (1, 2, 3, 4, 8, 64):
+        for hkv in (1, 2, 4, 8):
+            for rows in (1, 9, 16, 17, 36, 112, 128, 129, 217, 1024):
+                for reach in (1, 63, 64, 65, 1024, 8192):
+                    cs, warps = da.split_kv_plan(b, hkv, rows, reach, SMS)
+                    assert type(cs) is int and type(warps) is int
+                    assert 1 <= cs <= 8 and 1 <= warps <= 8
+                    assert -(-rows // (16 * warps)) * 16 * warps >= rows
+
+
+@pytest.mark.parametrize("bad", [torch.tensor(4), np.int64(4), 4.0, True])
+def test_plan_takes_python_ints_only(bad):
+    """A device value (a tensor's max) must never reach the plan: it would
+    synchronize the host and break graph capture."""
+    with pytest.raises(TypeError):
+        da.split_kv_plan(bad, 8, 36, 1024, SMS)
+    with pytest.raises(TypeError):
+        da.split_kv_plan(4, 8, 36, bad, SMS)
+
+
+def test_plan_rejects_empty_shapes():
+    with pytest.raises(ValueError):
+        da.split_kv_plan(4, 8, 0, 1024, SMS)
+
+
+# ------------------------------------------------------------ emulation
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def emulate(q, k_pages, v_pages, tables, kv_len, q_pos, *, tree=None,
+            window=0, softcap=0.0, scale=None, round_p=True):
+    """The bf16 loop's arithmetic in f32: the plan's tiles and key split,
+    per-split online softmax over 64-key chunks (log2 units; P rounded to
+    bf16 for P V when ``round_p``; l sums the f32 P), the merge in split
+    order. ``tree`` = (win_start, win_len, anc) selects the tree mask.
+    Returns f32 [B, Tq, Hq, D]; rows that see no key are 0."""
+    b, tq, hq, d = q.shape
+    hkv = k_pages.shape[2]
+    g = hq // hkv
+    rows = tq * g
+    mbs, bs = tables.shape[1], k_pages.shape[1]
+    cs, warps = da.split_kv_plan(b, hkv, rows, mbs * bs, SMS)
+    tile = 16 * warps
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    k = da.gather_pages(k_pages, tables).float()            # [B, S, Hkv, D]
+    v = da.gather_pages(v_pages, tables).float()
+    reach = k.shape[1]
+    # row r = i * G + gg of kv head h is query head h * G + gg of query i
+    qr = q.float().reshape(b, tq, hkv, g, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, hkv, rows, d)
+    out = torch.zeros(b, hkv, rows, d)
+    for bi in range(b):
+        kl = min(int(kv_len[bi]), reach)
+        for r0 in range(0, rows, tile):
+            rr = torch.arange(r0, min(rows, r0 + tile))
+            qp = q_pos[bi, rr // g].long()
+            rlo = qp - window + 1 if window > 0 else torch.zeros_like(qp)
+            if tree is not None:
+                ws, wl = int(tree[0][bi]), int(tree[1][bi])
+                anc = ta.anc_bits(tree[2])[bi, rr // g]
+                hi = min(kl, ws + wl)
+                lo = min(ws, max(0, int(qp.min()) - window + 1)) \
+                    if window > 0 else 0
+                rhi = torch.full_like(qp, min(hi, ws))
+            else:
+                hi = min(kl, int(qp.max()) + 1)
+                lo = max(0, int(qp.min()) - window + 1) if window > 0 else 0
+                rhi = torch.clamp(qp + 1, max=hi)
+            lo = lo // KEYS * KEYS
+            nchunk = -(-(hi - lo) // KEYS) if hi > lo else 0
+            parts = []
+            for split in range(cs):
+                m = torch.full((hkv, len(rr)), NEG)
+                l = torch.zeros(hkv, len(rr))
+                o = torch.zeros(hkv, len(rr), d)
+                for c in range(split * nchunk // cs,
+                               (split + 1) * nchunk // cs):
+                    p = lo + c * KEYS + torch.arange(KEYS)
+                    inside = p < hi
+                    kc = torch.zeros(KEYS, hkv, d)
+                    vc = torch.zeros(KEYS, hkv, d)
+                    kc[inside], vc[inside] = k[bi, p[inside]], v[bi, p[inside]]
+                    s = torch.einsum("hrd,khd->hrk", qr[bi][:, rr], kc) * scale
+                    if softcap:
+                        s = torch.tanh(s / softcap) * softcap
+                    s = s * LOG2E
+                    ok = (p[None] >= rlo[:, None]) & (p[None] < rhi[:, None])
+                    if tree is not None:
+                        jw = (p - ws).clamp(0, tq - 1)
+                        bit = (anc[:, None] >> jw[None]) & 1
+                        ok |= ((p >= ws) & (p < min(hi, ws + tq)))[None] \
+                            & (bit == 1)
+                    s = torch.where(ok[None], s, NEG)
+                    mx = torch.maximum(m, s.amax(-1))
+                    base = torch.where(mx == NEG, 0.0, mx)
+                    alpha = torch.exp2(m - base)
+                    pr = torch.exp2(s - base[..., None])
+                    l = l * alpha + pr.sum(-1)
+                    pv = _bf16(pr) if round_p else pr
+                    o = o * alpha[..., None] + torch.einsum("hrk,khd->hrd",
+                                                            pv, vc)
+                    m = mx
+                parts.append((o, m, l))
+            mmax = torch.stack([m for _, m, _ in parts]).amax(0)
+            base = torch.where(mmax == NEG, 0.0, mmax)
+            acc = torch.zeros(hkv, len(rr), d)
+            lsum = torch.zeros(hkv, len(rr))
+            for o, m, l in parts:                       # split order
+                w = torch.exp2(m - base)
+                lsum += w * l
+                acc += w[..., None] * o
+            out[bi][:, rr] = acc / torch.where(lsum == 0, 1.0, lsum)[..., None]
+    return out.reshape(b, hkv, tq, g, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, tq, hq, d)
+
+
+def _paged_case(seed, b, tq, hq, hkv, d, bs, ctx, tree=False, dead=()):
+    """bf16-valued f32 inputs. Causal: kv_len = ctx, queries at the last
+    Tq positions. Tree: random templates at win_start = ctx, kv_len = ctx
+    + Tq, logical positions ctx + depth; rows in ``dead`` get win_len 0
+    (with ctx 0 they see no key). Pools hold each row's blocks, shuffled;
+    block 0 is garbage."""
+    rng = np.random.default_rng(seed)
+    ctx = np.asarray(ctx, np.int64)
+    case = dict(q=_bf16(torch.from_numpy(
+        rng.standard_normal((b, tq, hq, d)).astype(np.float32))))
+    if tree:
+        anc = np.zeros((b, tq), np.int64)
+        depth = np.zeros((b, tq), np.int64)
+        win_len = np.zeros(b, np.int64)
+        for r in range(b):
+            while True:
+                br = [int(x) for x in rng.integers(1, 4, rng.integers(1, 8))]
+                try:
+                    t = TreeTemplate.from_branching(br)
+                except ValueError:
+                    continue
+                if t.num_slots <= tq:
+                    break
+            ns = t.num_slots
+            anc[r, :ns], depth[r, :ns], win_len[r] = t.anc, t.depth, ns
+        win_len[list(dead)] = 0
+        kv_len = ctx + tq
+        q_pos = ctx[:, None] + depth
+        case.update(win_start=torch.from_numpy(ctx).int(),
+                    win_len=torch.from_numpy(win_len).int(),
+                    anc=torch.from_numpy(anc))
+    else:
+        kv_len = ctx
+        q_pos = np.maximum(kv_len[:, None] - tq + np.arange(tq)[None], 0)
+    mbs = max(1, int(max(-(-int(n) // bs) for n in kv_len)))
+    nb = 1 + b * mbs
+    tables = rng.permutation(np.arange(1, nb)).reshape(b, mbs)
+    case.update(
+        k_pages=_bf16(torch.from_numpy(
+            rng.standard_normal((nb, bs, hkv, d)).astype(np.float32))),
+        v_pages=_bf16(torch.from_numpy(
+            rng.standard_normal((nb, bs, hkv, d)).astype(np.float32))),
+        block_tables=torch.from_numpy(tables).int(),
+        kv_len=torch.from_numpy(kv_len).int(),
+        q_pos=torch.from_numpy(q_pos).int())
+    return case
+
+
+def _run(case, **kw):
+    """(emulation with f32 P, with bf16 P, the port's plain version, the
+    JAX oracle) as numpy; plus the rows that see some key."""
+    args = [case[n] for n in ("q", "k_pages", "v_pages", "block_tables",
+                              "kv_len", "q_pos")]
+    jargs = [jnp.asarray(a.numpy()) for a in args]
+    if "anc" in case:
+        tree = (case["win_start"], case["win_len"], case["anc"])
+        plain = ta.tree_attention_paged_ref(
+            *args, case["win_start"], case["anc"], win_len=case["win_len"],
+            **kw)
+        jax = ref.tree_attention_paged_ref(
+            *jargs, jnp.asarray(case["win_start"].numpy()),
+            jnp.asarray(case["anc"].numpy().astype(np.uint32)),
+            win_len=jnp.asarray(case["win_len"].numpy()), **kw)
+        kv = da.gather_pages(case["k_pages"], case["block_tables"])
+        pos = torch.arange(kv.shape[1])[None].expand(kv.shape[0], -1)
+        eff = torch.minimum(case["kv_len"].long(), case["win_start"].long()
+                            + case["win_len"].long())
+        seen = (ta.tree_allowed(case["q_pos"], pos, ta.TreeAttnInfo(
+            case["win_start"], case["anc"], case["win_len"]),
+            kw.get("window", 0)) & (pos < eff[:, None])[:, None]).any(-1)
+    else:
+        tree = None
+        plain = da.decode_attention_paged_ref(*args, **kw)
+        jax = ref.decode_attention_paged_ref(*jargs, **kw)
+        seen = da.causal_allowed(case["q_pos"], case["kv_len"],
+                                 case["block_tables"].shape[1]
+                                 * case["k_pages"].shape[1],
+                                 kw.get("window", 0)).any(-1)
+    exact = emulate(*args, tree=tree, round_p=False, **kw)
+    rounded = emulate(*args, tree=tree, round_p=True, **kw)
+    return (exact.numpy(), rounded.numpy(), plain.numpy(), np.asarray(jax),
+            seen.numpy())
+
+
+CASES = {
+    # B 4 x Hkv 2: clusters of 5 over 5 chunks; the 70-key row leaves 3
+    # splits empty, kv_len 1 leaves 4, kv_len 0 sees no key at all
+    "empty splits, kv_len 1, a row that sees no key, bs 16": dict(
+        b=4, tq=9, hq=8, hkv=2, d=32, bs=16, ctx=[300, 70, 1, 0]),
+    # clusters of 8 over the 3 chunks the window leaves
+    "window removes whole splits, softcap, bs 64": dict(
+        b=1, tq=9, hq=8, hkv=2, d=48, bs=64, ctx=[1000],
+        kw=dict(window=100, softcap=30.0)),
+    "ragged rows, window, softcap, bs 16": dict(
+        b=3, tq=16, hq=8, hkv=2, d=32, bs=16, ctx=[40, 333, 129],
+        kw=dict(window=64, softcap=20.0)),
+    # G = 7: queries straddle the 16-row mma tiles; Tq 36 makes two CTA
+    # tiles of 128 rows with query 18 across the boundary
+    "G = 7, Tq 16: 112 rows, bs 16": dict(
+        b=3, tq=16, hq=14, hkv=2, d=32, bs=16, ctx=[16, 200, 77]),
+    "G = 7, Tq 36: 252 rows in two tiles, bs 64": dict(
+        b=2, tq=36, hq=14, hkv=2, d=32, bs=64, ctx=[36, 300]),
+    "tree, 31 slots, a row that sees no key, short rows": dict(
+        b=4, tq=31, hq=8, hkv=2, d=32, bs=16, ctx=[0, 1, 70, 400],
+        tree=True, dead=(0,)),
+    # 217 rows in two tiles of 112
+    "tree, G = 7, Tq 31: 217 rows, bs 16": dict(
+        b=2, tq=31, hq=14, hkv=2, d=32, bs=16, ctx=[5, 300], tree=True),
+    "tree, window removes splits, softcap, bs 64": dict(
+        b=1, tq=23, hq=8, hkv=2, d=64, bs=64, ctx=[1500], tree=True,
+        kw=dict(window=64, softcap=30.0)),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_emulation_matches_plain_and_jax(name):
+    spec = dict(CASES[name])
+    kw = spec.pop("kw", {})
+    case = _paged_case(len(name), **spec)
+    exact, rounded, plain, jax, seen = _run(case, **kw)
+    # the split and merge are exact up to f32 summation order
+    np.testing.assert_allclose(exact, plain, **TOL)
+    # bf16 P: within 2^-9 max|v| of the plain version
+    bound = 2.0 ** -9 * float(case["v_pages"].abs().max()) + 1e-5
+    assert np.abs(rounded - plain).max() <= bound, name
+    # JAX's oracle on the rows that see a key; the others are 0 here
+    np.testing.assert_allclose(exact[seen], jax[seen], **TOL)
+    assert not exact[~seen].any() and not rounded[~seen].any()
+
+
+def test_cases_take_several_splits():
+    """Every emulated case splits (cs > 1), and the first two leave some
+    split of some row without a chunk."""
+    for name, spec in CASES.items():
+        rows = spec["tq"] * spec["hq"] // spec["hkv"]
+        mbs = max(1, max(-(-(c + spec["tq"] * bool(spec.get("tree"))) //
+                            spec["bs"]) for c in spec["ctx"]))
+        cs, _ = da.split_kv_plan(spec["b"], spec["hkv"], rows,
+                                 mbs * spec["bs"], SMS)
+        assert cs > 1, name
+    assert da.split_kv_plan(4, 2, 36, 19 * 16, SMS)[0] == 5   # 70 keys: 2 chunks
+    assert da.split_kv_plan(1, 2, 36, 16 * 64, SMS)[0] == 8   # window: 3 chunks
+
+
+def test_full_width_bf16_p_error():
+    """G 4, D 128, kv 4096 (Hq 32, Hkv 8, one row, clusters of 8): the
+    emulated kernel with bf16 P and a bf16 output stays within the bf16
+    tolerance 2e-2 of the plain version."""
+    case = _paged_case(7, b=1, tq=9, hq=32, hkv=8, d=128, bs=64, ctx=[4096])
+    args = [case[n] for n in ("q", "k_pages", "v_pages", "block_tables",
+                              "kv_len", "q_pos")]
+    assert da.split_kv_plan(1, 8, 36, 4096, SMS) == (8, 3)
+    out = _bf16(emulate(*args, round_p=True))
+    plain = da.decode_attention_paged_ref(*args)
+    err = (out - plain).abs().max().item()
+    assert err <= 2e-2, err
