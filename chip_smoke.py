@@ -11,31 +11,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from ``src/repro_torch/csrc`` in parallel (one ``nvcc -Xptxas -v``
      each): decode_attention_paged, decode_attention, tree_attention_paged,
      tree_attention, flash_attention(_bwd), pard_attention(_bwd),
-     ssd_chunked; for the training kernels and the paged serving kernels
-     each bf16 instance's registers and spills (a spill fails), and a check
-     that the SASS of every bf16 product kernel (``cuobjdump -sass``) holds
-     HGMMA or HMMA;
+     ssd_chunked; for the training kernels and the four serving kernels
+     each bf16 instance's registers and spills (a spill fails; 16 serving
+     instances: 4 kernels x 4 head dims, each named with its mask and K/V
+     addressing), and a check that the SASS of every bf16 product kernel
+     (``cuobjdump -sass``) holds HGMMA or HMMA;
   3. kernel vs plain: each attention kernel against its plain PyTorch
      version on the card (head dims 128 / 64 / 48 / 32, G 1, 2 and 4, bf16
      and fp32, ragged contexts up to 4096, window + softcap, random tree
      templates with per-row win_len up to 32 slots; block 0 and every cache
      slot at or past each row's reach poisoned with +-1e4), max abs error
-     against the stated tolerance; the bf16 split-KV loop of the paged
-     kernels also at its edges (splits that get no keys, kv_len 1, rows
-     that see no key, a window that leaves a few chunks, pages of 8 / 16,
-     G = 7 across the mma and CTA row tiles), two calls bitwise equal,
-     and a call captured in a CUDA graph replayed after kv_len / q_pos
-     are rewritten in place; ssd_chunked (y and final state) at the
+     against the stated tolerance; the bf16 split-KV loop of all four
+     serving kernels also at its edges (splits that get no keys, kv_len 1,
+     rows that see no key, a window that leaves a few chunks, pages of 8 /
+     16, G = 7 across the mma and CTA row tiles; on contiguous caches
+     kv_len past S and a tree window that ends at S), two calls bitwise
+     equal, and a call captured in a CUDA graph replayed after kv_len /
+     q_pos are rewritten in place; ssd_chunked (y and final state) at the
      mamba2-130m and tiny shapes, t in {9, 16, 50, 2048}, chunk 16 and 64,
      a nonzero initial state, bf16 and fp32, and its gather route (dt = 0
      past a random per-row index) against the token-by-token oracle;
-  4. timing: CUDA-event times of each kernel, its plain version and a
-     PyTorch library call (SDPA with a boolean mask over the gathered KV;
-     none for the SSD scan) on the same inputs at the engine's shapes and
-     at kv 1k-4k (cold L2: inputs rotate over more than 128 MB), beside
-     the least time the card could take; the serving-attention kernels
-     and SDPA by device time (a CUDA graph of one call per input set,
-     replayed between the events), their eager per-call times beside;
+  4. timing: each kernel and a PyTorch library call (SDPA with a boolean
+     mask over the gathered KV; none for the SSD scan) by device time (a
+     CUDA graph of one call per input set, replayed between CUDA events),
+     their eager per-call times beside, and the plain version's eager
+     time, on the same inputs at the engine's shapes and at kv 1k-4k
+     (cold L2: inputs rotate over more than 128 MB), beside the least time
+     the card could take;
   5. reference: tiny-target / tiny-draft in fp32 on the card — forward
      logits against the CPU plain path; greedy tokens of flat PARD, a tree,
      a degenerate chain (1,)*K, on paged and contiguous KV, all equal to
@@ -65,9 +67,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      cases where the tensor-core tiles can break, at every head dim in
      bf16: T = 1, 65 and 1023, S < T with a window, a COD layout with a
      64-token tile of padding only and one with tiles classed full; then
-     their times at the training shapes beside the bound, the plain
-     versions and SDPA (SDPA's backward over the same rotating input sets
-     as the kernel's), and the COD tile classes visited and full;
+     their times at the training shapes, forward and backward, by device
+     time as in phase 4 (eager beside), beside the bound, the plain
+     versions and SDPA (its backward by device time as a CUDA graph of
+     forward and backward less one of the forward; eager over the same
+     rotating input sets as the kernel's), and the COD tile classes
+     visited and full;
   9. training at full width (llama3.2-1b, 16 layers, random weights from
      --seed, f32 params and AdamW moments, bf16 activations, the cosine
      schedule of ``repro_torch.launch.train`` at peak 1e-3, its trainer
@@ -117,8 +122,10 @@ TRAIN_KERNELS = {"flash": ("flash_attention", "flash_attention_bwd"),
                  "pard": ("pard_attention", "pard_attention_bwd")}
 TRAIN_NAMES = tuple(n for pair in TRAIN_KERNELS.values() for n in pair)
 # serving kernels whose bf16 instances run the tensor-core split-KV loop
-# (csrc/serve_attention_mma.cuh)
-MMA_SERVING = ("decode_attention_paged", "tree_attention_paged")
+# (csrc/serve_attention_mma.cuh): all four, one instance per head dim each
+MMA_SERVING = ("decode_attention_paged", "decode_attention",
+               "tree_attention_paged", "tree_attention")
+SMMA_INSTANCES = 4 * len(MMA_SERVING)
 WIDE = (2, 2, 1, 1, 1, 1, 1, 1)      # the default bank's 31-slot template at K=8
 TRAIN_MODEL = "llama3.2-1b"
 TRAIN_SEQ = {"ar": 1024, "pard": 512}   # N per row; PARD packs 512 to T=1726
@@ -375,9 +382,13 @@ def phase_build(build):
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    smma = 0
     for name in MMA_SERVING:
-        report_mma(name, logs[name])
+        smma += report_mma(name, logs[name])
         check_tensor_cores(build, name)
+    if smma != SMMA_INSTANCES:
+        raise SmokeFailure(f"{smma} bf16 serving instances reported, "
+                           f"expected {SMMA_INSTANCES}")
     for name in TRAIN_NAMES:
         lib = build.load(name)
         smem = getattr(lib, f"{name}_smem")
@@ -389,18 +400,20 @@ def phase_build(build):
 
 def report_mma(name, text):
     """Log each bf16 tensor-core instance's registers and spills; fail on
-    a spill."""
-    for kernel, (regs, spills) in ptxas_report(text).items():
+    a spill. Returns the number of instances."""
+    report = ptxas_report(text)
+    for kernel, (regs, spills) in report.items():
         log(f"  {name}: {kernel}: {regs} registers, {spills} spill bytes "
             f"(stores + loads)")
         if spills:
             raise SmokeFailure(f"{name}: {kernel} spills {spills} bytes")
+    return len(report)
 
 
 def ptxas_report(text):
     """{kernel: (registers, spill bytes)} from ``nvcc -Xptxas -v`` output,
     for the entries of the bf16 tensor-core kernels (namespaces tmma and
-    smma), named kernel<D, Mask>."""
+    smma), named as ``_tmma_label`` names them."""
     import re
     out, cur = {}, None
     for line in text.splitlines():
@@ -419,14 +432,20 @@ def ptxas_report(text):
 
 
 def _tmma_label(mangled):
-    """fwd_kernel<64, CausalMask> from tmma's (or smma's) mangled kernel
-    name."""
+    """fwd_kernel<64, CausalMask> from tmma's mangled kernel name;
+    mma_kernel<64, tree, ContigKV> from smma's (its mask flag and K/V
+    addressing)."""
     import re
     m = re.match(r"_ZN4[ts]mma(\d+)", mangled)
     name = mangled[m.end():m.end() + int(m.group(1))]
-    d = re.match(r"ILi(\d+)E", mangled[m.end() + int(m.group(1)):]).group(1)
-    masks = [k for k in ("CausalMask", "CodMask") if k in mangled]
-    return f"{name}<{', '.join([d] + masks)}>"
+    rest = mangled[m.end() + int(m.group(1)):]
+    d = re.match(r"ILi(\d+)E", rest).group(1)
+    tags = [k for k in ("CausalMask", "CodMask") if k in mangled]
+    flag = re.match(r"ILi\d+ELb([01])E", rest)
+    if flag:
+        tags.append("tree" if flag.group(1) == "1" else "causal")
+    tags += [k for k in ("PagedKV", "ContigKV") if k in mangled]
+    return f"{name}<{', '.join([d] + tags)}>"
 
 
 def check_tensor_cores(build, name):
@@ -525,13 +544,14 @@ def correctness_cases(torch):
         ("D=48 G=1 bf16", dict(mid1, tq=31, ctx=[1, 64, 300, 1000],
                                kv_dtype=bf, q_dtype=bf)),
     ]
-    # the bf16 split-KV loop's edges (paged kernels only; the contiguous
-    # kernels run the f32 loop): clusters of 3 (B 4 x Hkv 8) to 8 (B <= 2)
-    # with splits that get no chunk (short rows, kv_len 1, a row that sees
-    # no key, a window that leaves 2-3 chunks of 64), page sizes 8 / 16 /
-    # 64, and G = 7, whose queries straddle the 16-row mma tiles and the
-    # CTA tiles (Tq 16: 112 rows; Tq 36: 252 rows in two tiles of 128,
-    # query 18 across the boundary; tree Tq 31: 217 rows in two of 112)
+    # the bf16 split-KV loop's edges, for all four kernels: clusters of 3
+    # (B 4 x Hkv 8) to 8 (B <= 2) with splits that get no chunk (short
+    # rows, kv_len 1, a row that sees no key, a window that leaves 2-3
+    # chunks of 64), page sizes 8 / 16 / 64 (the contiguous kernels take
+    # the same rows in caches of S = the longest kv_len), and G = 7, whose
+    # queries straddle the 16-row mma tiles and the CTA tiles (Tq 16: 112
+    # rows; Tq 36: 252 rows in two tiles of 128, query 18 across the
+    # boundary; tree Tq 31: 217 rows in two of 112)
     g7 = dict(b=2, hq=14, hkv=2, d=64, kv_dtype=bf, q_dtype=bf)
     split_decode = [
         ("split bf16 empty splits, kv 1, no key", dict(
@@ -559,10 +579,19 @@ def correctness_cases(torch):
         ("split bf16 tiny D=32 bs 8", dict(tiny, tq=11, ctx=[5, 30, 95, 200],
                                            kv_dtype=bf, q_dtype=bf)),
     ]
+    # contiguous rows end at S: kv_len past S (row 1's queries straddle S,
+    # q_pos up to 1029), and tree windows that end at S (row 0: 993 + 31)
+    # or cross it (row 1: keys 1000 .. 1023 of its 31 slots exist)
+    past_s = [(f"S=1024 kv_len > S {dt}", dict(
+        target, tq=9, ctx=[1000, 1030, 700, 1024], s=1024, kv_dtype=t,
+        q_dtype=t)) for dt, t in (("bf16", bf), ("fp32", f32))]
+    window_at_s = [(f"S=1024 window ends at S {dt}", dict(
+        target, tq=31, ctx=[993, 1000, 64, 0], s=1024, template=WIDE,
+        kv_dtype=t, q_dtype=t)) for dt, t in (("bf16", bf), ("fp32", f32))]
     return {"decode_attention_paged": decode + split_decode,
-            "decode_attention": decode,
+            "decode_attention": decode + split_decode + past_s,
             "tree_attention_paged": tree + split_tree,
-            "tree_attention": tree}
+            "tree_attention": tree + split_tree + window_at_s}
 
 
 def phase_correctness(torch, args, dev="cuda"):
@@ -593,9 +622,10 @@ def phase_correctness(torch, args, dev="cuda"):
 
 
 def phase_split_kv(torch, args, dev="cuda"):
-    """The bf16 split-KV loop of the paged kernels: two calls are bitwise
-    equal; a call captured in a CUDA graph, replayed after kv_len and q_pos
-    are rewritten in place, matches the plain version on the new values."""
+    """The bf16 split-KV loop of the four serving kernels: two calls are
+    bitwise equal; a call captured in a CUDA graph, replayed after kv_len
+    and q_pos are rewritten in place, matches the plain version on the new
+    values."""
     import numpy as np
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
     rng = np.random.default_rng(args.seed + 3)
@@ -604,9 +634,11 @@ def phase_split_kv(torch, args, dev="cuda"):
     shape = dict(b=4, hq=32, hkv=8, d=128, bs=64, kv_dtype=bf, q_dtype=bf,
                  ctx=[300, 1000, 2049, 4000])
     worst = {}
-    for name, kw in (("decode_attention_paged", dict(shape, tq=9)),
-                     ("tree_attention_paged", dict(shape, tq=31,
-                                                   window=200))):
+    decode, tree = dict(shape, tq=9), dict(shape, tq=31, window=200)
+    for name, kw in (("decode_attention_paged", decode),
+                     ("decode_attention", decode),
+                     ("tree_attention_paged", tree),
+                     ("tree_attention", tree)):
         fn, ref, kind = fns[name]
         case = make_case(torch, gen, rng, kind, dev=dev, **kw)
         first, second = fn(**case), fn(**case)
@@ -1060,11 +1092,11 @@ def ssd_bound_ms(c):
 
 
 def phase_ssd_timing(torch, args, dev="cuda"):
-    """ssd_chunked and its plain version at the Mamba2 serving shapes
-    (mamba2-130m, B=4, bf16: the verify / AR window t=9 and the draft
-    window t=16, chunk 16 after the clamp) and one long call (t=2048,
-    chunk 64), beside the bound. No single PyTorch call computes this
-    scan: library none."""
+    """ssd_chunked by device time (eager beside) and its plain version at
+    the Mamba2 serving shapes (mamba2-130m, B=4, bf16: the verify / AR
+    window t=9 and the draft window t=16, chunk 16 after the clamp) and
+    one long call (t=2048, chunk 64), beside the bound. No single PyTorch
+    call computes this scan: library none."""
     from repro_torch.kernels import ssd
     gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
     dims = SSD_SHAPES["mamba2-130m"]
@@ -1079,19 +1111,24 @@ def phase_ssd_timing(torch, args, dev="cuda"):
                                    chunk=64, dev=dev, **dims)
                           for _ in range(max(2, math.ceil(COLD_BYTES /
                                                           per_set)) - 1)]
-        ms = time_ms(torch, lambda c: ssd.ssd_chunked(*_ssd_args(c),
-                                                      chunk=c["chunk"]),
-                     sets, 200 if t < 100 else 20)
+        def call(c):
+            return ssd.ssd_chunked(*_ssd_args(c), chunk=c["chunk"])
+
+        ms = graph_ms(torch, call, sets, 200 if t < 100 else 20)
+        eager = time_ms(torch, call, sets, 200 if t < 100 else 20)
         chunk = ssd.clamp_chunk(64, t)
         plain = time_ms(torch, lambda c: ssd.ssd_chunked_ref(
             *_ssd_args(c), chunk=chunk), sets, 20 if t < 100 else 3)
         bnd, by = ssd_bound_ms(first)
         log(f"[timing] ssd_chunked {label} B=4 H=24 P=64 N=128 chunk={chunk} "
-            f"bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library none, "
-            f"bound {bnd:.5f} ms ({by}); {len(sets)} input sets")
+            f"bf16: kernel {ms:.4f} ms (eager {eager:.4f}), plain {plain:.4f} "
+            f"ms, library none, bound {bnd:.5f} ms ({by}); device time from a "
+            f"CUDA graph of {len(sets)} input sets")
+        row = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                   bound_by=by)
         if result is None:          # the main row: the verify window
-            result = dict(ms=ms, plain_ms=plain, library_ms=None,
-                          bound_ms=bnd, bound_by=by)
+            result = dict(row, timings=[])
+        result["timings"].append(dict(row, label=label, eager_ms=eager))
         del sets, first
         torch.cuda.empty_cache()
     return {"ssd_chunked": result}
@@ -1426,7 +1463,9 @@ def phase_train_timing(torch, F, args, dev="cuda"):
     """Kernel, plain and SDPA times, forward and backward, at the training
     shapes: flash B=4 T=1024 Hq=32 Hkv=8 D=64 causal; pard B=4 N=512
     (T=1726) at COD; bf16; then flash at head dim 48 beside its D=64 row
-    (not the kernels' main rows)."""
+    (not the kernels' main rows). The kernels and SDPA by device time
+    (``graph_ms``), eager beside; SDPA's backward by device time is a
+    graph of its forward and backward less one of its forward."""
     import numpy as np
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pard_attention as pa
@@ -1470,8 +1509,10 @@ def phase_train_timing(torch, F, args, dev="cuda"):
                 f"takes {ms_tiles:.4f} ms per batch")
         for c in sets:
             c["o"], c["lse"] = fwd(c)
-        ms_f = time_ms(torch, fwd, sets, 20)
-        ms_b = time_ms(torch, bwd, sets, 10)
+        ms_f = graph_ms(torch, fwd, sets)
+        ms_b = graph_ms(torch, bwd, sets, 50)
+        eager_f = time_ms(torch, fwd, sets, 20)
+        eager_b = time_ms(torch, bwd, sets, 10)
 
         def plain_fwd(c):
             with torch.no_grad():
@@ -1504,27 +1545,38 @@ def phase_train_timing(torch, F, args, dev="cuda"):
                 return F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     attn_mask=mask, enable_gqa=True)
-        lib_f = time_ms(torch, lambda c: lib(c["q"], c["k"], c["v"]), sets, 10)
-        # SDPA's backward over the same rotating input sets as the kernel's
-        # (one graph per set); the single warm graph of earlier runs beside it
+
+        def lib_fwd(c):
+            return lib(c["q"], c["k"], c["v"])
+
+        def lib_fwd_bwd(c):
+            q, k, v = (c[n].detach().requires_grad_(True) for n in "qkv")
+            return torch.autograd.grad(lib(q, k, v).transpose(1, 2),
+                                       (q, k, v), c["dout"])
+
+        lib_f = graph_ms(torch, lib_fwd, sets)
+        lib_b = graph_ms(torch, lib_fwd_bwd, sets, 50) - lib_f
+        lib_eager_f = time_ms(torch, lib_fwd, sets, 10)
+        # SDPA's eager backward over the same rotating input sets as the
+        # kernel's (one autograd graph per set)
         lib_gs = [graph(c, lambda q, k, v: lib(q, k, v).transpose(1, 2))
                   for c in sets]
-        lib_b = time_ms(torch, grad_of, lib_gs, 10)
-        lib_b_warm = time_ms(torch, grad_of, lib_gs[:1], 5)
+        lib_eager_b = time_ms(torch, grad_of, lib_gs, 10)
         del lib_gs
-        for name, ms, plain, libt, backward in (
-                (fwd_name, ms_f, plain_f, lib_f, False),
-                (bwd_name, ms_b, plain_b, lib_b, True)):
+        for name, ms, eager, plain, libt, lib_eager, backward in (
+                (fwd_name, ms_f, eager_f, plain_f, lib_f, lib_eager_f, False),
+                (bwd_name, ms_b, eager_b, plain_b, lib_b, lib_eager_b, True)):
             bnd, by = train_bound_ms(torch, first, backward)
-            warm = (f" (one warm graph: {lib_b_warm:.4f} ms)" if backward
-                    else "")
             log(f"[timing] {name} B=4 T={first['q'].shape[1]} Hq=32 Hkv=8 "
-                f"D={kw['d']} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"sdpa {libt:.4f} ms{warm}, bound {bnd:.5f} ms ({by}); "
-                f"{len(sets)} input sets")
-            results.setdefault(name, dict(ms=ms, plain_ms=plain,
-                                          library_ms=libt, bound_ms=bnd,
-                                          bound_by=by))
+                f"D={kw['d']} bf16: kernel {ms:.4f} ms (eager {eager:.4f}), "
+                f"plain {plain:.4f} ms, sdpa {libt:.4f} ms (eager "
+                f"{lib_eager:.4f}), bound {bnd:.5f} ms ({by}); device times "
+                f"from a CUDA graph of {len(sets)} input sets")
+            row = dict(ms=ms, plain_ms=plain, library_ms=libt, bound_ms=bnd,
+                       bound_by=by)
+            results.setdefault(name, dict(row, timings=[]))["timings"].append(
+                dict(row, label=f"D={kw['d']}", eager_ms=eager,
+                     library_eager_ms=lib_eager))
         del sets, first
         if dev == "cuda":
             torch.cuda.empty_cache()

@@ -9,6 +9,9 @@
 // A small query window q [B, Tq, Hq, D] attends to a row's keys; the K/V
 // addressing (`PagedKV`: per-row block table, `ContigKV`: row stride) and
 // the mask (causal or tree) are template parameters, the rest is one body.
+// This loop runs the float32 and mixed instances; q and K/V in bfloat16
+// take the tensor-core split-KV loop of serve_attention_mma.cuh, which
+// shares the masks, the operands and the addressing defined here.
 //
 // Causal mask: key position p is visible to query (b, i) iff p < kv_len[b],
 // p <= q_pos[b, i] and, with a window, p > q_pos[b, i] - window.
@@ -35,8 +38,7 @@
 // tile can see: [window start, min(kv_len, last q_pos + 1)) for the causal
 // mask, [window start, eff_len) for the tree mask, whose bound must not use
 // q_pos (a node at depth 8 in slot 30 has q_pos = root + 8 but its KV at
-// win_start + 30). Arithmetic is f32 FMA on the CUDA cores; tensor cores,
-// split-KV for small B * Hkv, TMA and wgmma are left for later work.
+// win_start + 30). Arithmetic is f32 FMA on the CUDA cores.
 //
 // Head dims: 32, 48, 64 and 128. A head dim that is not a multiple of the
 // warp's 32 lanes (48) is padded inside the tile to the next multiple (64):
@@ -102,11 +104,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// K/V addressing: element offset of (row b, position p, kv head h)
+// K/V addressing: the positions a row can hold (reach), the element
+// offset of (row b, position p, kv head h), and whether `keys` positions
+// from a multiple of `keys` lie in one run of stride hkv * d (runs)
 struct PagedKV {          // pools [NB, bs, Hkv, D], tables [B, MBS]
   const int* tables;
   int nb, bs, mbs;
   __device__ __forceinline__ int reach() const { return mbs * bs; }
+  __device__ __forceinline__ bool runs(int keys) const { return bs % keys == 0; }
   __device__ __forceinline__ size_t offset(int b, int p, int h, int hkv, int d) const {
     int blk = tables[b * mbs + p / bs];
     blk = min(max(blk, 0), nb - 1);
@@ -117,6 +122,7 @@ struct PagedKV {          // pools [NB, bs, Hkv, D], tables [B, MBS]
 struct ContigKV {         // cache [B, S, Hkv, D]
   int s;
   __device__ __forceinline__ int reach() const { return s; }
+  __device__ __forceinline__ bool runs(int) const { return true; }
   __device__ __forceinline__ size_t offset(int b, int p, int h, int hkv, int d) const {
     return ((static_cast<size_t>(b) * s + p) * hkv + h) * d;
   }
@@ -366,7 +372,8 @@ cudaError_t launch_d(int d, const Args& a, const KV& kv, int b, cudaStream_t str
   return cudaErrorInvalidValue;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = ok).
+// dtype codes: 0 = float32, 1 = bfloat16; q and K/V both in bfloat16 take
+// serve_attention_mma.cuh, not this loop. Returns a cudaError_t (0 = ok).
 template <class KV, bool kTree>
 int dispatch(const Args& a, const KV& kv, int b, int d, int q_dtype, int kv_dtype,
              void* stream) {
@@ -380,8 +387,6 @@ int dispatch(const Args& a, const KV& kv, int b, int d, int q_dtype, int kv_dtyp
     err = launch_d<float, __nv_bfloat16, KV, kTree>(d, a, kv, b, s);
   else if (q_dtype == 1 && kv_dtype == 0)
     err = launch_d<__nv_bfloat16, float, KV, kTree>(d, a, kv, b, s);
-  else if (q_dtype == 1 && kv_dtype == 1)
-    err = launch_d<__nv_bfloat16, __nv_bfloat16, KV, kTree>(d, a, kv, b, s);
   return static_cast<int>(err);
 }
 

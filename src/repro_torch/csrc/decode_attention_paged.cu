@@ -36,6 +36,6 @@ extern "C" int decode_attention_paged(const void* q, const void* k, const void* 
                      out, tq, hq, hkv, scale, window, softcap};
   const attn::PagedKV kv{static_cast<const int*>(tables), nb, bs, mbs};
   if (q_dtype == 1 && kv_dtype == 1)
-    return smma::dispatch<false>(a, kv, b, d, cluster, warps, stream);
+    return smma::dispatch<attn::PagedKV, false>(a, kv, b, d, cluster, warps, stream);
   return attn::dispatch<attn::PagedKV, false>(a, kv, b, d, q_dtype, kv_dtype, stream);
 }

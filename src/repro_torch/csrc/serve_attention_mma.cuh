@@ -1,26 +1,35 @@
 // Serving attention on Hopper's tensor cores (sm_90a): the bfloat16
-// instances (q and K/V in bf16) of the paged serving kernels.
+// instances (q and K/V in bf16) of the four serving kernels.
 //
-//   decode_attention_paged.cu  causal mask, block-paged pool
-//   tree_attention_paged.cu    tree mask,   block-paged pool
+//   decode_attention_paged.cu  causal mask, block-paged pool   (PagedKV)
+//   decode_attention.cu        causal mask, contiguous cache   (ContigKV)
+//   tree_attention_paged.cu    tree mask,   block-paged pool   (PagedKV)
+//   tree_attention.cu          tree mask,   contiguous cache   (ContigKV)
 //
-// They replace the TPU kernels `decode_attention_paged`
-// (src/repro/kernels/decode_attention.py) and `tree_attention_paged`
-// (src/repro/kernels/tree_attention.py) for bf16 inputs. The float32 and
-// mixed instances stay on attention_tile.cuh, whose header comment defines
-// the masks, the operands (attn::Args, attn::PagedKV), the softcap and the
-// 0 returned for a query that sees no key; this loop computes the same
-// function.
+// They replace the TPU kernels `decode_attention_paged` / `decode_attention`
+// (src/repro/kernels/decode_attention.py) and `tree_attention_paged` /
+// `tree_attention` (src/repro/kernels/tree_attention.py) for bf16 inputs.
+// The float32 and mixed instances stay on attention_tile.cuh, whose header
+// comment defines the masks, the operands (attn::Args) and the K/V
+// addressing (attn::PagedKV: a per-row block table, attn::ContigKV: one
+// [B, S, Hkv, D] row per batch row), the softcap and the 0 returned for a
+// query that sees no key; this loop computes the same function, with the
+// addressing as a template parameter. A row's reach (MBS * bs positions
+// paged, S contiguous) bounds its sweep: min(kv_len, reach), so a
+// contiguous kernel never reads past S.
 //
 // What bounds them on an H100: the bytes of K/V. A key costs 4 * rows * D
 // FLOPs (Q K^T and P V over the window's rows) against 4 D bytes of K and
 // V, so rows FLOP per byte: 36 for the verify window (G 4 x Tq 9), 64 for
 // the draft window (4 x 16), 124 for the 31-slot tree (4 x 31), far below
-// the card's ~295 FLOP/byte balance. The f32 loop of attention_tile.cuh is
-// bound instead by its own arithmetic: every product is an FMA on the CUDA
-// cores from shared memory (~1 M FMA per 64-key chunk per block), rows are
-// padded to 64, and B * Hkv = 32 blocks leave three quarters of 132 SMs
-// idle while each block streams its row's keys alone. The design:
+// the card's ~295 FLOP/byte balance. Both layouts move the same bytes: a
+// contiguous row is max_len long (1024 in the engine) but only the keys
+// below min(kv_len, S) that some query sees are streamed, as from the
+// pages. The f32 loop of attention_tile.cuh is bound instead by its own
+// arithmetic: every product is an FMA on the CUDA cores from shared memory
+// (~1 M FMA per 64-key chunk per block), rows are padded to 64, and B *
+// Hkv = 32 blocks leave three quarters of 132 SMs idle while each block
+// streams its row's keys alone. The design:
 //
 //   - Products on the tensor cores as mma.sync.m16n8k16 (bf16 in, f32
 //     accumulators), operands by ldmatrix from shared memory: S = Q K^T
@@ -47,17 +56,16 @@
 //   - Split-KV across a thread-block cluster of cs CTAs (1..8, portable).
 //     The host picks cs from shapes alone (split_kv_plan in
 //     kernels/decode_attention.py: B * Hkv * row tiles against 90 % of the
-//     SMs, capped by the pool's reach in 64-key chunks), so no device
-//     value is read and a call can be captured in a CUDA graph. A CTA
-//     holds an SM (up to 140 KB of shared memory, 8 x 32 threads at ~210
-//     registers), and a cluster needs cs SMs of one GPC: on an H100 fewer
-//     than 32 clusters of 4 fit at once, so B 4 x Hkv 8 in clusters of 4
-//     ran in two waves; the 90 % keeps a call to one wave (B 4 x Hkv 8:
-//     clusters of 3, 96 CTAs). On the device each CTA takes a balanced
-//     share of the row tile's 64-key chunks of the visible range [lo, hi)
-//     (from kv_len, q_pos, win_start / win_len and the window; lo rounded
-//     down to a chunk, so with 64-slot pages every chunk is one page). A
-//     CTA whose share is empty keeps m = -inf, l = 0.
+//     SMs, capped by the reach in 64-key chunks), so no device value is
+//     read and a call can be captured in a CUDA graph. A CTA holds an SM
+//     (up to 140 KB of shared memory, 8 x 32 threads at ~210 registers),
+//     and a cluster needs cs SMs of one GPC: on an H100 fewer than 32
+//     clusters of 4 fit at once, so B 4 x Hkv 8 in clusters of 4 ran in
+//     two waves; the 90 % keeps a call to one wave (B 4 x Hkv 8: clusters
+//     of 3, 96 CTAs). On the device each CTA takes a balanced share of the
+//     row tile's 64-key chunks of the visible range [lo, hi) (from kv_len,
+//     the reach, q_pos, win_start / win_len and the window; lo rounded
+//     down to a chunk). A CTA whose share is empty keeps m = -inf, l = 0.
 //     The partial (O, m, l) of each CTA go to its shared memory; after
 //     cluster.sync() every row is merged by one CTA of the cluster, which
 //     reads the cs partials through distributed shared memory in split
@@ -69,11 +77,13 @@
 //     warps and all of them start copies, while only the rows' warps (3
 //     for the verify window) run the products: the rate at which a warp
 //     starts copies, not their latency, limited a 3-warp CTA's stream, so
-//     the verify window ran faster at every context with all 8 copying. With
-//     a page size that is a multiple of 64 a chunk looks up one
-//     block-table entry; smaller pages (the tiny configs' 8 and 16) look
-//     one up per key row. Rows are padded by 16 bytes in shared memory, so
-//     ldmatrix reads no bank twice.
+//     the verify window ran faster at every context with all 8 copying.
+//     A chunk whose 64 keys lie in one run of stride Hkv * D (every chunk
+//     of a contiguous row; a chunk of a pool whose page size is a multiple
+//     of 64) resolves its address once, with at most one block-table
+//     entry; smaller pages (the tiny configs' 8 and 16) look one up per key
+//     row. Rows are padded by 16 bytes in shared memory, so ldmatrix reads
+//     no bank twice.
 //
 // Head dims 32, 48, 64 and 128: all multiples of 16, so no padding.
 #pragma once
@@ -83,7 +93,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention_tile.cuh"  // attn::Args, attn::PagedKV
+#include "attention_tile.cuh"  // attn::Args, attn::PagedKV, attn::ContigKV
 
 namespace smma {
 
@@ -162,9 +172,9 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 // threads: warps 0 .. cw - 1 own 16 rows each, every warp copies.
 // A mma accumulator holds rows gid = lane / 4 and gid + 8 of the warp's 16,
 // columns 2 (lane % 4) and + 1 of each 8-column n-tile.
-template <int D, bool kTree>
+template <int D, bool kTree, class KV>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
-    mma_kernel(attn::Args a, attn::PagedKV kv, int cw) {
+    mma_kernel(attn::Args a, KV kv, int cw) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int RS = D + 8;     // bf16 row stride in shared memory
   constexpr int PS = D + 4;     // f32 partial row stride
@@ -208,7 +218,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, o));
     qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, o));
   }
-  const int kl = min(a.kv_len[b], kv.mbs * kv.bs);
+  const int kl = min(a.kv_len[b], kv.reach());
   int lo = 0, hi, ws = 0, wl = 0;
   if constexpr (kTree) {
     ws = a.win_start[b];
@@ -253,19 +263,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     const int c0 = lo + c * kKeys;
     bf16* ks = ring + stage * 2 * kKeys * RS;
     bf16* vs = ks + kKeys * RS;
-    const int* table = kv.tables + b * kv.mbs;
-    const bool page = kv.bs % kKeys == 0;   // the chunk lies in one page
-    const int pblk = page ? min(max(table[c0 / kv.bs], 0), kv.nb - 1) : 0;
+    const bool run = kv.runs(kKeys);      // keys c0 + j at base + j * hkv * D
+    const size_t base = run ? kv.offset(b, c0, h, hkv, D) : 0;
     for (int idx = tid; idx < kKeys * SEG; idx += nthreads) {
       const int j = idx / SEG, col = (idx % SEG) * 8;
       const int p = c0 + j;
       const bool in = p < hi;
       size_t off = 0;
-      if (in) {
-        const int blk = page ? pblk : min(max(table[p / kv.bs], 0), kv.nb - 1);
-        const int slot = page ? c0 % kv.bs + j : p % kv.bs;
-        off = ((static_cast<size_t>(blk) * kv.bs + slot) * hkv + h) * D + col;
-      }
+      if (in)
+        off = (run ? base + static_cast<size_t>(j) * hkv * D : kv.offset(b, p, h, hkv, D)) + col;
       cp_async16(ks + j * RS + col, kp + off, in);
       cp_async16(vs + j * RS + col, vp + off, in);
     }
@@ -477,10 +483,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   cluster.sync();                         // no CTA leaves while its partials are read
 }
 
-template <int D, bool kTree>
-cudaError_t launch(const attn::Args& a, const attn::PagedKV& kv, int b, int cs, int warps,
+template <int D, bool kTree, class KV>
+cudaError_t launch(const attn::Args& a, const KV& kv, int b, int cs, int warps,
                    cudaStream_t stream) {
-  auto kern = mma_kernel<D, kTree>;
+  auto kern = mma_kernel<D, kTree, KV>;
   const int rows = a.tq * (a.hq / a.hkv);
   const int tile = 16 * warps;
   const size_t smem = smem_bytes<D>(tile);
@@ -504,20 +510,19 @@ cudaError_t launch(const attn::Args& a, const attn::PagedKV& kv, int b, int cs, 
   return cudaGetLastError();
 }
 
-// q and K/V in bf16; cs and warps from split_kv_plan. Returns a
-// cudaError_t (0 = ok).
-template <bool kTree>
-int dispatch(const attn::Args& a, const attn::PagedKV& kv, int b, int d, int cs, int warps,
-             void* stream) {
+// q and K/V in bf16; KV is attn::PagedKV or attn::ContigKV; cs and warps
+// from split_kv_plan. Returns a cudaError_t (0 = ok).
+template <class KV, bool kTree>
+int dispatch(const attn::Args& a, const KV& kv, int b, int d, int cs, int warps, void* stream) {
   if (b <= 0 || a.tq <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0 || cs < 1 || cs > kMaxCluster ||
       warps < 1 || warps > kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (d == 32) err = launch<32, kTree>(a, kv, b, cs, warps, s);
-  if (d == 48) err = launch<48, kTree>(a, kv, b, cs, warps, s);
-  if (d == 64) err = launch<64, kTree>(a, kv, b, cs, warps, s);
-  if (d == 128) err = launch<128, kTree>(a, kv, b, cs, warps, s);
+  if (d == 32) err = launch<32, kTree, KV>(a, kv, b, cs, warps, s);
+  if (d == 48) err = launch<48, kTree, KV>(a, kv, b, cs, warps, s);
+  if (d == 64) err = launch<64, kTree, KV>(a, kv, b, cs, warps, s);
+  if (d == 128) err = launch<128, kTree, KV>(a, kv, b, cs, warps, s);
   return static_cast<int>(err);
 }
 

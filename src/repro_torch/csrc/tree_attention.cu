@@ -17,9 +17,14 @@
 //   out        [B, Tq, Hq, D]     q's dtype
 //
 // No padding of S: the sweep stops at min(kv_len, S, win_start + win_len).
-// The tile loop, the mask and what bounds it are in attention_tile.cuh.
+// q and K/V in bfloat16 run the tensor-core split-KV loop of
+// serve_attention_mma.cuh over a cluster of `cluster` CTAs of `warps` warps
+// (kernels/decode_attention.py: split_kv_plan, with the reach S); float32
+// and mixed inputs run the f32 tile loop of attention_tile.cuh, which also
+// defines the mask. What bounds each is in its header.
 
 #include "attention_tile.cuh"
+#include "serve_attention_mma.cuh"
 
 // dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = ok).
 extern "C" int tree_attention(const void* q, const void* k, const void* v,
@@ -27,12 +32,15 @@ extern "C" int tree_attention(const void* q, const void* k, const void* v,
                               const void* win_start, const void* win_len,
                               const void* anc, void* out, int b, int tq, int hq,
                               int hkv, int d, int s, int q_dtype, int kv_dtype,
-                              float scale, int window, float softcap, void* stream) {
+                              float scale, int window, float softcap, int cluster,
+                              int warps, void* stream) {
   if (s <= 0 || tq > 32) return static_cast<int>(cudaErrorInvalidValue);
   const attn::Args a{q, k, v, static_cast<const int*>(kv_len),
                      static_cast<const int*>(q_pos), static_cast<const int*>(win_start),
                      static_cast<const int*>(win_len), static_cast<const uint32_t*>(anc),
                      out, tq, hq, hkv, scale, window, softcap};
   const attn::ContigKV kv{s};
+  if (q_dtype == 1 && kv_dtype == 1)
+    return smma::dispatch<attn::ContigKV, true>(a, kv, b, d, cluster, warps, stream);
   return attn::dispatch<attn::ContigKV, true>(a, kv, b, d, q_dtype, kv_dtype, stream);
 }

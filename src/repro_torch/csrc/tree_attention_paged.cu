@@ -45,6 +45,6 @@ extern "C" int tree_attention_paged(const void* q, const void* k, const void* v,
                      out, tq, hq, hkv, scale, window, softcap};
   const attn::PagedKV kv{static_cast<const int*>(tables), nb, bs, mbs};
   if (q_dtype == 1 && kv_dtype == 1)
-    return smma::dispatch<true>(a, kv, b, d, cluster, warps, stream);
+    return smma::dispatch<attn::PagedKV, true>(a, kv, b, d, cluster, warps, stream);
   return attn::dispatch<attn::PagedKV, true>(a, kv, b, d, q_dtype, kv_dtype, stream);
 }

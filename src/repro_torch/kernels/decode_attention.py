@@ -12,7 +12,7 @@ window (Tq = 2K), the verify window (Tq = K+1) and prompt chunks.
 Each wrapper launches its kernel (``csrc/decode_attention_paged.cu``,
 ``csrc/decode_attention.cu``) for CUDA tensors and takes the plain version
 only for CPU tensors. The helpers shared with ``tree_attention`` (the
-masked f32 core ``attend``, the input checks, the launcher and the paged
+masked f32 core ``attend``, the input checks, the launcher and the bf16
 kernels' split-KV plan ``split_kv_plan``) live here.
 """
 from __future__ import annotations
@@ -30,7 +30,7 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 48, 64, 128)
 
-# the bf16 tensor-core loop of the paged kernels (csrc/serve_attention_mma.cuh)
+# the bf16 tensor-core loop of the serving kernels (csrc/serve_attention_mma.cuh)
 MAX_WARPS = 8           # 16 query rows each: 128 rows per CTA
 MAX_CLUSTER = 8         # the portable thread-block cluster size
 KEY_CHUNK = 64          # keys per cp.async ring stage
@@ -40,8 +40,9 @@ def split_kv_plan(b: int, hkv: int, rows: int, reach: int,
                   sms: int) -> Tuple[int, int]:
     """(cluster size cs, warps with rows per CTA) of the bf16 loop.
 
-    ``rows`` = Tq * G query rows per kv head, ``reach`` = MBS * block
-    positions a block table can name, ``sms`` the card's SM count. The rows
+    ``rows`` = Tq * G query rows per kv head, ``reach`` the positions a
+    row can hold (MBS * block for a paged pool, S for a contiguous
+    cache), ``sms`` the card's SM count. The rows
     split into balanced tiles of at most 128 (``warps`` * 16 rows each,
     one CTA of 8 warps per tile, all of which copy);
     the B * Hkv * tiles groups each take a cluster of ``cs`` CTAs that
@@ -212,14 +213,16 @@ def dims(q, k, scale, window, softcap):
     return head, tail
 
 
-def plan_args(q, k_pages, block_tables):
-    """The paged kernels' trailing (cluster, warps) ctypes arguments, from
-    shapes and the card's SM count alone (``split_kv_plan``)."""
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan_args(q, hkv: int, reach: int):
+    """The serving kernels' trailing (cluster, warps) ctypes arguments:
+    ``split_kv_plan`` of q [B, Tq, Hq, D], ``hkv`` kv heads and a row's
+    ``reach`` (an int from shapes), with the card's SM count."""
     b, tq, hq, _ = q.shape
-    hkv = k_pages.shape[2]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = split_kv_plan(b, hkv, tq * (hq // hkv),
-                         block_tables.shape[1] * k_pages.shape[1], sms)
+    plan = split_kv_plan(b, hkv, tq * (hq // hkv), reach, sm_count(q.device))
     return tuple(ctypes.c_int(x) for x in plan)
 
 
@@ -253,7 +256,7 @@ def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
     launch("decode_attention_paged", q, ptr(q), ptr(k_pages), ptr(v_pages),
            ptr(block_tables), ptr(kv_len), ptr(q_pos), ptr(out), *head,
            *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail,
-           *plan_args(q, k_pages, block_tables))
+           *plan_args(q, k_pages.shape[2], block_tables.shape[1] * bs))
     return out
 
 
@@ -267,7 +270,9 @@ def decode_attention(q, k, v, kv_len, q_pos, *,
     past S do not exist: the sweep stops at min(kv_len, S)); q_pos: [B, Tq]
     int32. Returns [B, Tq, Hq, D] in q's dtype. Unlike the TPU wrapper, S
     is not padded. Quantized caches (``k_scale`` / ``v_scale``) are not
-    ported yet.
+    ported yet. On the card, q and the cache in bf16 take the split-KV
+    tensor-core loop, planned with the reach S; the call reads no device
+    value and allocates only its output.
     """
     check_scales(k_scale, v_scale)
     b, tq, _, d = q.shape
@@ -282,6 +287,8 @@ def decode_attention(q, k, v, kv_len, q_pos, *,
                            ("q_pos", q_pos, (b, tq))))
     out = torch.empty_like(q)
     head, tail = dims(q, k, scale, window, softcap)
+    s = k.shape[1]
     launch("decode_attention", q, ptr(q), ptr(k), ptr(v), ptr(kv_len),
-           ptr(q_pos), ptr(out), *head, ctypes.c_int(k.shape[1]), *tail)
+           ptr(q_pos), ptr(out), *head, ctypes.c_int(s), *tail,
+           *plan_args(q, k.shape[2], s))
     return out

@@ -162,7 +162,7 @@ def tree_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
            ptr(block_tables), ptr(kv_len), ptr(q_pos), ptr(win_start),
            ptr(win_len), ptr(anc32), ptr(out), *head,
            *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail,
-           *plan_args(q, k_pages, block_tables))
+           *plan_args(q, k_pages.shape[2], block_tables.shape[1] * bs))
     return out
 
 
@@ -175,7 +175,9 @@ def tree_attention(q, k, v, kv_len, q_pos, win_start, anc, *, win_len=None,
     q: [B, Tq, Hq, D], Tq <= 32; k, v: [B, S, Hkv, D]; the other operands
     as in ``tree_attention_paged``. S is not padded: the sweep stops at
     min(kv_len, S, win_start + win_len). Quantized caches are not ported
-    yet.
+    yet. On the card, q and the cache in bf16 take the split-KV
+    tensor-core loop, planned with the reach S; the call reads no device
+    value.
     """
     check_scales(k_scale, v_scale)
     b, tq, _, d = q.shape
@@ -193,7 +195,8 @@ def tree_attention(q, k, v, kv_len, q_pos, win_start, anc, *, win_len=None,
                            ("anc", anc32, (b, tq))))
     out = torch.empty_like(q)
     head, tail = dims(q, k, scale, window, softcap)
+    s = k.shape[1]
     launch("tree_attention", q, ptr(q), ptr(k), ptr(v), ptr(kv_len),
            ptr(q_pos), ptr(win_start), ptr(win_len), ptr(anc32), ptr(out),
-           *head, ctypes.c_int(k.shape[1]), *tail)
+           *head, ctypes.c_int(s), *tail, *plan_args(q, k.shape[2], s))
     return out

@@ -301,19 +301,37 @@ def test_tree_kernels_reject_what_they_do_not_take(cuda):
                           v_scale=cont["kv_len"])
 
 
-# bf16 q and KV in the paged kernels take the tensor-core split-KV loop
-# (csrc/serve_attention_mma.cuh): its edges, determinism and graph capture
+# bf16 q and KV take the tensor-core split-KV loop
+# (csrc/serve_attention_mma.cuh) in all four serving kernels: its edges,
+# determinism and graph capture, on pools and on contiguous caches
 BF = torch.bfloat16
-
-
-@pytest.mark.parametrize("b,tq,hq,hkv,d,bs,kv_len,window,softcap", [
+SPLIT_DECODE_EDGES = [
     (4, 9, 32, 8, 128, 64, [4096, 70, 1, 0], 0, 0.0),   # empty splits, no key
     (1, 9, 32, 8, 128, 64, [4000], 100, 30.0),          # window removes splits
     (4, 16, 56, 8, 128, 16, [16, 300, 1000, 2500], 0, 0.0),  # G 7: 112 rows
     (2, 36, 14, 2, 64, 64, [36, 777], 0, 0.0),          # G 7: 2 tiles of 128
     (4, 8, 4, 2, 32, 8, [8, 30, 95, 200], 0, 0.0),      # pages of 8
     (4, 16, 4, 2, 48, 16, [1, 64, 65, 600], 0, 20.0),   # D 48, pages of 16
-])
+]
+SPLIT_TREE_EDGES = [
+    (4, 31, 32, 8, 128, 64, 0, 0.0, True),      # a row that sees no key
+    (2, 31, 14, 2, 64, 16, 0, 0.0, False),      # G 7: 217 rows, 2 tiles
+    (1, 23, 32, 8, 128, 64, 64, 30.0, False),   # window, softcap, B 1
+    (4, 11, 4, 2, 32, 8, 0, 0.0, True),         # pages of 8
+]
+
+
+def _contiguous(case):
+    """The contiguous cache [B, MBS * bs, Hkv, D] of a paged ``_case``:
+    each row's pages gathered in order (block 0's poison past the row)."""
+    out = {n: case[n] for n in ("q", "kv_len", "q_pos")}
+    out["k"] = da.gather_pages(case["k_pages"], case["block_tables"])
+    out["v"] = da.gather_pages(case["v_pages"], case["block_tables"])
+    return out
+
+
+@pytest.mark.parametrize("b,tq,hq,hkv,d,bs,kv_len,window,softcap",
+                         SPLIT_DECODE_EDGES)
 def test_split_kv_decode_edges(cuda, b, tq, hq, hkv, d, bs, kv_len, window,
                                softcap):
     case = _case(cuda, b, tq, hq, hkv, d, bs, kv_len, BF, BF)
@@ -324,18 +342,33 @@ def test_split_kv_decode_edges(cuda, b, tq, hq, hkv, d, bs, kv_len, window,
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("b,tq,hq,hkv,d,bs,window,softcap,dead", [
-    (4, 31, 32, 8, 128, 64, 0, 0.0, True),      # a row that sees no key
-    (2, 31, 14, 2, 64, 16, 0, 0.0, False),      # G 7: 217 rows, 2 tiles
-    (1, 23, 32, 8, 128, 64, 64, 30.0, False),   # window, softcap, B 1
-    (4, 11, 4, 2, 32, 8, 0, 0.0, True),         # pages of 8
-])
+@pytest.mark.parametrize("b,tq,hq,hkv,d,bs,kv_len,window,softcap",
+                         SPLIT_DECODE_EDGES)
+def test_split_kv_contiguous_decode_edges(cuda, b, tq, hq, hkv, d, bs, kv_len,
+                                          window, softcap):
+    case = _contiguous(_case(cuda, b, tq, hq, hkv, d, bs, kv_len, BF, BF))
+    before = kernels.launches["decode_attention"]
+    out = da.decode_attention(**case, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kernels.launches["decode_attention"] == before + 1
+    want = da.decode_attention_ref(**case, window=window, softcap=softcap)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def _dead_row(case):
+    """No context, no window slot: row 0 sees no key."""
+    case["win_start"][0] = 0
+    case["win_len"][0] = 0
+
+
+@pytest.mark.parametrize("b,tq,hq,hkv,d,bs,window,softcap,dead",
+                         SPLIT_TREE_EDGES)
 def test_split_kv_tree_edges(cuda, b, tq, hq, hkv, d, bs, window, softcap,
                              dead):
     case, _ = _tree_case(cuda, b, tq, hq, hkv, d, bs, BF, BF, seed=5)
-    if dead:                  # no context, no window slot: sees no key
-        case["win_start"][0] = 0
-        case["win_len"][0] = 0
+    if dead:
+        _dead_row(case)
     out = ta.tree_attention_paged(**case, window=window, softcap=softcap)
     want = ta.tree_attention_paged_ref(**case, window=window,
                                        softcap=softcap)
@@ -345,20 +378,49 @@ def test_split_kv_tree_edges(cuda, b, tq, hq, hkv, d, bs, window, softcap,
         assert not out[0].any()
 
 
+@pytest.mark.parametrize("b,tq,hq,hkv,d,bs,window,softcap,dead",
+                         SPLIT_TREE_EDGES)
+def test_split_kv_contiguous_tree_edges(cuda, b, tq, hq, hkv, d, bs, window,
+                                        softcap, dead):
+    _, case = _tree_case(cuda, b, tq, hq, hkv, d, bs, BF, BF, seed=5)
+    if dead:
+        _dead_row(case)
+    before = kernels.launches["tree_attention"]
+    out = ta.tree_attention(**case, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kernels.launches["tree_attention"] == before + 1
+    want = ta.tree_attention_ref(**case, window=window, softcap=softcap)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    if dead:
+        assert not out[0].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(BF, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("tree", [False, True])
-def test_split_kv_bitwise_and_graph_replay(cuda, tree):
-    """Two calls are bitwise equal; a call captured in a CUDA graph and
-    replayed after kv_len and q_pos are rewritten in place matches the
-    plain version on the new values (the wrapper reads no device value)."""
+def test_contiguous_sweep_stops_at_s(cuda, tree, dtype, tol):
+    """A contiguous row's sweep stops at S: kv_len past S (queries past S
+    too), and a tree window that ends at S (row 0, whose kv_len passes
+    S)."""
     if tree:
-        case, _ = _tree_case(cuda, 4, 31, 32, 8, 128, 64, BF, BF, seed=3)
-        fn, ref = ta.tree_attention_paged, ta.tree_attention_paged_ref
-        kw = dict(window=100)
+        _, case = _tree_case(cuda, 4, 31, 32, 8, 128, 64, dtype, dtype,
+                             seed=7)
+        s = int(case["win_start"][0] + case["win_len"][0])
+        fn, ref = ta.tree_attention, ta.tree_attention_ref
     else:
-        case = _case(cuda, 4, 9, 32, 8, 128, 64, [300, 1000, 2049, 4000],
-                     BF, BF)
-        fn, ref = da.decode_attention_paged, da.decode_attention_paged_ref
-        kw = {}
+        case = _contiguous(_case(cuda, 4, 9, 32, 8, 128, 64,
+                                 [1000, 1030, 700, 1024], dtype, dtype))
+        s = 1024
+        fn, ref = da.decode_attention, da.decode_attention_ref
+    case["k"] = case["k"][:, :s].contiguous()
+    case["v"] = case["v"][:, :s].contiguous()
+    assert int(case["kv_len"].max()) > s
+    out = fn(**case)
+    torch.testing.assert_close(out.float(), ref(**case).float(), atol=tol,
+                               rtol=tol)
+
+
+def _bitwise_and_graph_replay(fn, ref, case, kw, tree):
     assert torch.equal(fn(**case, **kw), fn(**case, **kw))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -378,6 +440,38 @@ def test_split_kv_bitwise_and_graph_replay(cuda, tree):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref(**case, **kw).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_split_kv_bitwise_and_graph_replay(cuda, tree):
+    """Two calls are bitwise equal; a call captured in a CUDA graph and
+    replayed after kv_len and q_pos are rewritten in place matches the
+    plain version on the new values (the wrapper reads no device value)."""
+    if tree:
+        case, _ = _tree_case(cuda, 4, 31, 32, 8, 128, 64, BF, BF, seed=3)
+        _bitwise_and_graph_replay(ta.tree_attention_paged,
+                                  ta.tree_attention_paged_ref, case,
+                                  dict(window=100), tree)
+    else:
+        case = _case(cuda, 4, 9, 32, 8, 128, 64, [300, 1000, 2049, 4000],
+                     BF, BF)
+        _bitwise_and_graph_replay(da.decode_attention_paged,
+                                  da.decode_attention_paged_ref, case, {},
+                                  tree)
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_split_kv_contiguous_bitwise_and_graph_replay(cuda, tree):
+    """The same for the contiguous kernels."""
+    if tree:
+        _, case = _tree_case(cuda, 4, 31, 32, 8, 128, 64, BF, BF, seed=3)
+        _bitwise_and_graph_replay(ta.tree_attention, ta.tree_attention_ref,
+                                  case, dict(window=100), tree)
+    else:
+        case = _contiguous(_case(cuda, 4, 9, 32, 8, 128, 64,
+                                 [300, 1000, 2049, 4000], BF, BF))
+        _bitwise_and_graph_replay(da.decode_attention, da.decode_attention_ref,
+                                  case, {}, tree)
 
 
 def test_tree_and_contiguous_engines_on_card(cuda):

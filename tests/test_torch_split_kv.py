@@ -1,17 +1,24 @@
-"""The split-KV plan and arithmetic of the paged kernels' bf16 loop.
+"""The split-KV plan and arithmetic of the serving kernels' bf16 loop.
 
-``csrc/serve_attention_mma.cuh`` runs ``decode_attention_paged`` and
-``tree_attention_paged`` for bf16 inputs on the card: the host plan
-``split_kv_plan`` picks a cluster of ``cs`` CTAs per (batch row, kv head,
-row tile); on the device each CTA takes a balanced share of the tile's
-64-key chunks of its visible range, runs an online softmax over them
-with P rounded to bf16 for the P V product, and one CTA per row merges
-the ``cs`` partials (O, m, l) in split order. No CUDA runs here: the
-plan is tested as the integer function it is, and ``emulate`` below
-repeats the kernel's arithmetic in f32 torch, chunk by chunk, and is
-held against the port's plain versions and the JAX package's oracles
-``repro.kernels.ref.decode_attention_paged_ref`` /
-``tree_attention_paged_ref`` on the same numpy inputs.
+``csrc/serve_attention_mma.cuh`` runs ``decode_attention_paged``,
+``decode_attention``, ``tree_attention_paged`` and ``tree_attention`` for
+bf16 inputs on the card: the host plan ``split_kv_plan`` picks a cluster
+of ``cs`` CTAs per (batch row, kv head, row tile) from the shapes and a
+row's reach (MBS * block positions of a pool, S of a contiguous cache);
+on the device each CTA takes a balanced share of the tile's 64-key chunks
+of its visible range, runs an online softmax over them with P rounded to
+bf16 for the P V product, and one CTA per row merges the ``cs`` partials
+(O, m, l) in split order. No CUDA runs here: the plan is tested as the
+integer function it is (and the wrappers are shown to plan with their
+reach), and ``emulate`` below repeats the kernel's arithmetic in f32
+torch, chunk by chunk, and is held against the port's plain versions and
+the JAX package's oracles ``repro.kernels.ref.decode_attention_paged_ref``
+/ ``tree_attention_paged_ref`` (pools) and ``decode_attention_ref`` /
+``tree_attention_ref`` (contiguous caches) on the same numpy inputs. A
+contiguous cache [B, S, Hkv, D] is the pool of B blocks of S positions
+with the block tables ``arange(B)[:, None]``, which is how the emulation
+reads it: the kernel's contiguous addressing differs from the paged one
+only in where a key's bytes lie.
 
 Tolerances: with P kept in f32 the emulation differs from the plain
 versions only in summation order (atol = rtol = 1e-5). Rounding P to
@@ -110,7 +117,8 @@ def emulate(q, k_pages, v_pages, tables, kv_len, q_pos, *, tree=None,
     per-split online softmax over 64-key chunks (log2 units; P rounded to
     bf16 for P V when ``round_p``; l sums the f32 P), the merge in split
     order. ``tree`` = (win_start, win_len, anc) selects the tree mask.
-    Returns f32 [B, Tq, Hq, D]; rows that see no key are 0."""
+    The plan's reach is MBS * block: S for a contiguous cache passed as B
+    blocks of S. Returns f32 [B, Tq, Hq, D]; rows that see no key are 0."""
     b, tq, hq, d = q.shape
     hkv = k_pages.shape[2]
     g = hq // hkv
@@ -191,40 +199,43 @@ def emulate(q, k_pages, v_pages, tables, kv_len, q_pos, *, tree=None,
         .reshape(b, tq, hq, d)
 
 
-def _paged_case(seed, b, tq, hq, hkv, d, bs, ctx, tree=False, dead=()):
-    """bf16-valued f32 inputs. Causal: kv_len = ctx, queries at the last
-    Tq positions. Tree: random templates at win_start = ctx, kv_len = ctx
-    + Tq, logical positions ctx + depth; rows in ``dead`` get win_len 0
-    (with ctx 0 they see no key). Pools hold each row's blocks, shuffled;
-    block 0 is garbage."""
-    rng = np.random.default_rng(seed)
+def _window(rng, b, tq, ctx, tree, dead):
+    """kv_len, q_pos [B, Tq] and the tree operands of rows with ``ctx``
+    context keys. Causal: kv_len = ctx, queries at the last Tq positions.
+    Tree: random templates at win_start = ctx, kv_len = ctx + Tq, logical
+    positions ctx + depth; rows in ``dead`` get win_len 0 (with ctx 0 they
+    see no key)."""
     ctx = np.asarray(ctx, np.int64)
+    if not tree:
+        return ctx, np.maximum(ctx[:, None] - tq + np.arange(tq)[None], 0), {}
+    anc = np.zeros((b, tq), np.int64)
+    depth = np.zeros((b, tq), np.int64)
+    win_len = np.zeros(b, np.int64)
+    for r in range(b):
+        while True:
+            br = [int(x) for x in rng.integers(1, 4, rng.integers(1, 8))]
+            try:
+                t = TreeTemplate.from_branching(br)
+            except ValueError:
+                continue
+            if t.num_slots <= tq:
+                break
+        ns = t.num_slots
+        anc[r, :ns], depth[r, :ns], win_len[r] = t.anc, t.depth, ns
+    win_len[list(dead)] = 0
+    return ctx + tq, ctx[:, None] + depth, dict(
+        win_start=torch.from_numpy(ctx).int(),
+        win_len=torch.from_numpy(win_len).int(), anc=torch.from_numpy(anc))
+
+
+def _paged_case(seed, b, tq, hq, hkv, d, bs, ctx, tree=False, dead=()):
+    """bf16-valued f32 inputs of ``_window``'s rows. Pools hold each row's
+    blocks, shuffled; block 0 is garbage."""
+    rng = np.random.default_rng(seed)
     case = dict(q=_bf16(torch.from_numpy(
         rng.standard_normal((b, tq, hq, d)).astype(np.float32))))
-    if tree:
-        anc = np.zeros((b, tq), np.int64)
-        depth = np.zeros((b, tq), np.int64)
-        win_len = np.zeros(b, np.int64)
-        for r in range(b):
-            while True:
-                br = [int(x) for x in rng.integers(1, 4, rng.integers(1, 8))]
-                try:
-                    t = TreeTemplate.from_branching(br)
-                except ValueError:
-                    continue
-                if t.num_slots <= tq:
-                    break
-            ns = t.num_slots
-            anc[r, :ns], depth[r, :ns], win_len[r] = t.anc, t.depth, ns
-        win_len[list(dead)] = 0
-        kv_len = ctx + tq
-        q_pos = ctx[:, None] + depth
-        case.update(win_start=torch.from_numpy(ctx).int(),
-                    win_len=torch.from_numpy(win_len).int(),
-                    anc=torch.from_numpy(anc))
-    else:
-        kv_len = ctx
-        q_pos = np.maximum(kv_len[:, None] - tq + np.arange(tq)[None], 0)
+    kv_len, q_pos, extra = _window(rng, b, tq, ctx, tree, dead)
+    case.update(extra)
     mbs = max(1, int(max(-(-int(n) // bs) for n in kv_len)))
     nb = 1 + b * mbs
     tables = rng.permutation(np.arange(1, nb)).reshape(b, mbs)
@@ -239,40 +250,83 @@ def _paged_case(seed, b, tq, hq, hkv, d, bs, ctx, tree=False, dead=()):
     return case
 
 
+def _contig_case(seed, b, tq, hq, hkv, d, s, ctx, tree=False, dead=()):
+    """bf16-valued f32 inputs of ``_window``'s rows in a contiguous cache
+    [B, S, Hkv, D]; kv_len may pass S. ``s`` None: S ends at row 0's tree
+    window (win_start + win_len)."""
+    rng = np.random.default_rng(seed)
+    case = dict(q=_bf16(torch.from_numpy(
+        rng.standard_normal((b, tq, hq, d)).astype(np.float32))))
+    kv_len, q_pos, extra = _window(rng, b, tq, ctx, tree, dead)
+    case.update(extra)
+    if s is None:
+        s = int(extra["win_start"][0] + extra["win_len"][0])
+    case.update(
+        k=_bf16(torch.from_numpy(
+            rng.standard_normal((b, s, hkv, d)).astype(np.float32))),
+        v=_bf16(torch.from_numpy(
+            rng.standard_normal((b, s, hkv, d)).astype(np.float32))),
+        kv_len=torch.from_numpy(kv_len).int(),
+        q_pos=torch.from_numpy(q_pos).int())
+    return case
+
+
 def _run(case, **kw):
     """(emulation with f32 P, with bf16 P, the port's plain version, the
-    JAX oracle) as numpy; plus the rows that see some key."""
-    args = [case[n] for n in ("q", "k_pages", "v_pages", "block_tables",
-                              "kv_len", "q_pos")]
+    JAX oracle) as numpy; plus the rows that see some key. A contiguous
+    case (``k``, ``v``) is emulated as B blocks of S."""
+    q, kv_len, q_pos = case["q"], case["kv_len"], case["q_pos"]
+    if "k" in case:
+        keys = case["k"]
+        args = [q, case["k"], case["v"], kv_len, q_pos]
+        tables = torch.arange(keys.shape[0], dtype=torch.int32)[:, None]
+        emu = [q, case["k"], case["v"], tables, kv_len, q_pos]
+        flat = (da.decode_attention_ref, ref.decode_attention_ref)
+        tree_fns = (ta.tree_attention_ref, ref.tree_attention_ref)
+    else:
+        keys = da.gather_pages(case["k_pages"], case["block_tables"])
+        args = emu = [q, case["k_pages"], case["v_pages"],
+                      case["block_tables"], kv_len, q_pos]
+        flat = (da.decode_attention_paged_ref, ref.decode_attention_paged_ref)
+        tree_fns = (ta.tree_attention_paged_ref, ref.tree_attention_paged_ref)
     jargs = [jnp.asarray(a.numpy()) for a in args]
     if "anc" in case:
         tree = (case["win_start"], case["win_len"], case["anc"])
-        plain = ta.tree_attention_paged_ref(
-            *args, case["win_start"], case["anc"], win_len=case["win_len"],
-            **kw)
-        jax = ref.tree_attention_paged_ref(
+        plain = tree_fns[0](*args, case["win_start"], case["anc"],
+                            win_len=case["win_len"], **kw)
+        jax = tree_fns[1](
             *jargs, jnp.asarray(case["win_start"].numpy()),
             jnp.asarray(case["anc"].numpy().astype(np.uint32)),
             win_len=jnp.asarray(case["win_len"].numpy()), **kw)
-        kv = da.gather_pages(case["k_pages"], case["block_tables"])
-        pos = torch.arange(kv.shape[1])[None].expand(kv.shape[0], -1)
-        eff = torch.minimum(case["kv_len"].long(), case["win_start"].long()
+        pos = torch.arange(keys.shape[1])[None].expand(keys.shape[0], -1)
+        eff = torch.minimum(kv_len.long(), case["win_start"].long()
                             + case["win_len"].long())
-        seen = (ta.tree_allowed(case["q_pos"], pos, ta.TreeAttnInfo(
+        seen = (ta.tree_allowed(q_pos, pos, ta.TreeAttnInfo(
             case["win_start"], case["anc"], case["win_len"]),
             kw.get("window", 0)) & (pos < eff[:, None])[:, None]).any(-1)
     else:
         tree = None
-        plain = da.decode_attention_paged_ref(*args, **kw)
-        jax = ref.decode_attention_paged_ref(*jargs, **kw)
-        seen = da.causal_allowed(case["q_pos"], case["kv_len"],
-                                 case["block_tables"].shape[1]
-                                 * case["k_pages"].shape[1],
+        plain = flat[0](*args, **kw)
+        jax = flat[1](*jargs, **kw)
+        seen = da.causal_allowed(q_pos, kv_len, keys.shape[1],
                                  kw.get("window", 0)).any(-1)
-    exact = emulate(*args, tree=tree, round_p=False, **kw)
-    rounded = emulate(*args, tree=tree, round_p=True, **kw)
+    exact = emulate(*emu, tree=tree, round_p=False, **kw)
+    rounded = emulate(*emu, tree=tree, round_p=True, **kw)
     return (exact.numpy(), rounded.numpy(), plain.numpy(), np.asarray(jax),
             seen.numpy())
+
+
+def _check_against_plain_and_jax(name, case, kw):
+    exact, rounded, plain, jax, seen = _run(case, **kw)
+    # the split and merge are exact up to f32 summation order
+    np.testing.assert_allclose(exact, plain, **TOL)
+    # bf16 P: within 2^-9 max|v| of the plain version
+    v = case["v"] if "v" in case else case["v_pages"]
+    bound = 2.0 ** -9 * float(v.abs().max()) + 1e-5
+    assert np.abs(rounded - plain).max() <= bound, name
+    # JAX's oracle on the rows that see a key; the others are 0 here
+    np.testing.assert_allclose(exact[seen], jax[seen], **TOL)
+    assert not exact[~seen].any() and not rounded[~seen].any()
 
 
 CASES = {
@@ -310,15 +364,7 @@ def test_emulation_matches_plain_and_jax(name):
     spec = dict(CASES[name])
     kw = spec.pop("kw", {})
     case = _paged_case(len(name), **spec)
-    exact, rounded, plain, jax, seen = _run(case, **kw)
-    # the split and merge are exact up to f32 summation order
-    np.testing.assert_allclose(exact, plain, **TOL)
-    # bf16 P: within 2^-9 max|v| of the plain version
-    bound = 2.0 ** -9 * float(case["v_pages"].abs().max()) + 1e-5
-    assert np.abs(rounded - plain).max() <= bound, name
-    # JAX's oracle on the rows that see a key; the others are 0 here
-    np.testing.assert_allclose(exact[seen], jax[seen], **TOL)
-    assert not exact[~seen].any() and not rounded[~seen].any()
+    _check_against_plain_and_jax(name, case, kw)
 
 
 def test_cases_take_several_splits():
@@ -347,3 +393,94 @@ def test_full_width_bf16_p_error():
     plain = da.decode_attention_paged_ref(*args)
     err = (out - plain).abs().max().item()
     assert err <= 2e-2, err
+
+
+# ------------------------------------------------------ contiguous caches
+CONTIG_CASES = {
+    # B 4 x Hkv 2 over S 320: clusters of 5; the 70-key row leaves 3
+    # splits empty, kv_len 1 leaves 4, kv_len 0 sees no key at all
+    "empty splits, kv_len 1, a row that sees no key": dict(
+        b=4, tq=9, hq=8, hkv=2, d=32, s=320, ctx=[300, 70, 1, 0]),
+    # clusters of 8 over the 3 chunks the window leaves
+    "window removes whole splits, softcap": dict(
+        b=1, tq=9, hq=8, hkv=2, d=48, s=1024, ctx=[1000],
+        kw=dict(window=100, softcap=30.0)),
+    "G = 7, Tq 16: 112 rows": dict(
+        b=3, tq=16, hq=14, hkv=2, d=32, s=256, ctx=[16, 200, 77]),
+    "G = 7, Tq 36: 252 rows in two tiles": dict(
+        b=2, tq=36, hq=14, hkv=2, d=32, s=320, ctx=[36, 300]),
+    # kv_len past S: the sweep stops at S; row 0's queries all lie past S,
+    # row 1's straddle it
+    "kv_len > S": dict(
+        b=3, tq=9, hq=8, hkv=2, d=32, s=200, ctx=[230, 205, 150]),
+    "tree, G = 7, Tq 31: 217 rows": dict(
+        b=2, tq=31, hq=14, hkv=2, d=32, s=400, ctx=[5, 300], tree=True),
+    "tree, a row that sees no key, short rows": dict(
+        b=4, tq=31, hq=8, hkv=2, d=32, s=512, ctx=[0, 1, 70, 400],
+        tree=True, dead=(0,)),
+    # S ends at row 0's window: its last window key is the row's last slot
+    "tree window ends at S": dict(
+        b=2, tq=31, hq=8, hkv=2, d=64, s=None, ctx=[700, 20], tree=True),
+    "tree, window removes splits, softcap": dict(
+        b=1, tq=23, hq=8, hkv=2, d=64, s=1600, ctx=[1500], tree=True,
+        kw=dict(window=64, softcap=30.0)),
+}
+
+
+@pytest.mark.parametrize("name", list(CONTIG_CASES))
+def test_contiguous_emulation_matches_plain_and_jax(name):
+    spec = dict(CONTIG_CASES[name])
+    kw = spec.pop("kw", {})
+    case = _contig_case(len(name), **spec)
+    b, s, hkv = case["k"].shape[:3]
+    rows = spec["tq"] * spec["hq"] // hkv
+    assert da.split_kv_plan(b, hkv, rows, s, SMS)[0] > 1, name
+    if name == "kv_len > S":
+        assert int(case["kv_len"].max()) > s and int(case["q_pos"].max()) >= s
+    if name == "tree window ends at S":
+        assert int(case["win_start"][0] + case["win_len"][0]) == s
+    _check_against_plain_and_jax(name, case, kw)
+
+
+@pytest.mark.parametrize("kernel", ["decode_attention_paged",
+                                    "decode_attention",
+                                    "tree_attention_paged", "tree_attention"])
+def test_wrappers_plan_with_their_reach(monkeypatch, kernel):
+    """Each wrapper hands its kernel split_kv_plan(B, Hkv, Tq * G, reach,
+    SMs): reach S for a contiguous cache, MBS * block for a pool. The
+    launch and the card's SM count are stubbed, so no CUDA runs."""
+    calls = []
+    monkeypatch.setattr(da, "sm_count", lambda device: SMS)
+    for mod in (da, ta):
+        monkeypatch.setattr(mod, "on_card", lambda q: True)
+        monkeypatch.setattr(mod, "launch",
+                            lambda name, q, *args: calls.append((name, args)))
+    tree = kernel.startswith("tree")
+    # B 1, Hkv 2, 36 rows: the plan's cluster size follows the reach
+    # (S 100: 2 chunks; MBS 3 x block 16 = 48: 1 chunk)
+    b, tq, hq, hkv, d, s, bs, mbs = 1, 9, 8, 2, 32, 100, 16, 3
+    bf = torch.bfloat16
+    i32 = dict(dtype=torch.int32)
+    q = torch.zeros(b, tq, hq, d, dtype=bf)
+    ints = dict(kv_len=torch.full((b,), 40, **i32),
+                q_pos=torch.arange(31, 40, **i32)[None])
+    if tree:
+        ints.update(win_start=torch.full((b,), 31, **i32),
+                    anc=torch.ones(b, tq, dtype=torch.int64),
+                    win_len=torch.full((b,), tq, **i32))
+    if kernel.endswith("paged"):
+        pool = torch.zeros(1 + mbs, bs, hkv, d, dtype=bf)
+        tables = torch.arange(1, 1 + mbs, **i32)[None]
+        fn = ta.tree_attention_paged if tree else da.decode_attention_paged
+        fn(q, pool, pool, tables, **ints)
+        reach = mbs * bs
+    else:
+        cache = torch.zeros(b, s, hkv, d, dtype=bf)
+        fn = ta.tree_attention if tree else da.decode_attention
+        fn(q, cache, cache, **ints)
+        reach = s
+    (name, args), = calls
+    assert name == kernel
+    plan = tuple(a.value for a in args[-2:])
+    assert plan == da.split_kv_plan(b, hkv, tq * hq // hkv, reach, SMS)
+    assert plan[0] == (2 if reach == s else 1)
