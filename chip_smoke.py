@@ -11,10 +11,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from ``src/repro_torch/csrc`` in parallel (one ``nvcc -Xptxas -v``
      each): decode_attention_paged, decode_attention, tree_attention_paged,
      tree_attention, flash_attention(_bwd), pard_attention(_bwd),
-     ssd_chunked; for the training kernels and the four serving kernels
-     each bf16 instance's registers and spills (a spill fails; 16 serving
-     instances: 4 kernels x 4 head dims, each named with its mask and K/V
-     addressing), and a check that the SASS of every bf16 product kernel
+     ssd_chunked; for the training kernels, the four serving kernels and
+     ssd_chunked each bf16 instance's registers and spills (a spill fails;
+     16 serving instances: 4 kernels x 4 head dims, each named with its
+     mask and K/V addressing; 6 ssd instances, one per tile plan), and a
+     check that the SASS of every bf16 product kernel
      (``cuobjdump -sass``) holds HGMMA or HMMA;
   3. kernel vs plain: each attention kernel against its plain PyTorch
      version on the card (head dims 128 / 64 / 48 / 32, G 1, 2 and 4, bf16
@@ -28,9 +29,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kv_len past S and a tree window that ends at S), two calls bitwise
      equal, and a call captured in a CUDA graph replayed after kv_len /
      q_pos are rewritten in place; ssd_chunked (y and final state) at the
-     mamba2-130m and tiny shapes, t in {9, 16, 50, 2048}, chunk 16 and 64,
-     a nonzero initial state, bf16 and fp32, and its gather route (dt = 0
-     past a random per-row index) against the token-by-token oracle;
+     mamba2-130m and tiny shapes, t in {1, 9, 16, 17, 50, 65, 2048},
+     chunk 16 and 64, a nonzero initial state, bf16 and fp32, at a ragged
+     P block and N and with init_state None; two calls bitwise equal, a
+     call captured in a CUDA graph replayed on new inputs equal to an eager
+     call, a fully masked window leaving the state bit for bit, and its
+     gather route (dt = 0 past a random per-row index) against the
+     token-by-token oracle;
   4. timing: each kernel and a PyTorch library call (SDPA with a boolean
      mask over the gathered KV; none for the SSD scan) by device time (a
      CUDA graph of one call per input set, replayed between CUDA events),
@@ -382,6 +387,10 @@ def phase_build(build):
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if report_mma("ssd_chunked", logs["ssd_chunked"]) != SSD_MMA_INSTANCES:
+        raise SmokeFailure(f"expected {SSD_MMA_INSTANCES} bf16 ssd_chunked "
+                           f"instances in the ptxas report")
+    check_tensor_cores(build, "ssd_chunked")
     smma = 0
     for name in MMA_SERVING:
         smma += report_mma(name, logs[name])
@@ -413,11 +422,12 @@ def report_mma(name, text):
 def ptxas_report(text):
     """{kernel: (registers, spill bytes)} from ``nvcc -Xptxas -v`` output,
     for the entries of the bf16 tensor-core kernels (namespaces tmma and
-    smma), named as ``_tmma_label`` names them."""
+    smma, and ssd's mma_kernel), named as ``_tmma_label`` names them."""
     import re
     out, cur = {}, None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(_ZN4[ts]mma\w+)'", line)
+        m = re.search(r"Compiling entry function "
+                      r"'(_ZN(?:4[ts]mma|3ssd10mma_kernel)\w+)'", line)
         if m:
             cur = _tmma_label(m.group(1))
             out[cur] = [0, 0]
@@ -434,8 +444,11 @@ def ptxas_report(text):
 def _tmma_label(mangled):
     """fwd_kernel<64, CausalMask> from tmma's mangled kernel name;
     mma_kernel<64, tree, ContigKV> from smma's (its mask flag and K/V
-    addressing)."""
+    addressing); ssd mma_kernel<nk, mt> from ssd's."""
     import re
+    ssd_ = re.match(r"_ZN3ssd10mma_kernelILi(\d+)ELi(\d+)E", mangled)
+    if ssd_:
+        return f"ssd mma_kernel<nk={ssd_.group(1)}, mt={ssd_.group(2)}>"
     m = re.match(r"_ZN4[ts]mma(\d+)", mangled)
     name = mangled[m.end():m.end() + int(m.group(1))]
     rest = mangled[m.end() + int(m.group(1)):]
@@ -451,8 +464,8 @@ def _tmma_label(mangled):
 def check_tensor_cores(build, name):
     """Fail unless the SASS of every bf16 product kernel of ``name``'s
     library (tmma's fwd / dkdv / dq instances, its delta pass has no
-    product; smma's serving loop, one per head dim) holds HMMA or
-    HGMMA."""
+    product; smma's serving loop, one per head dim; ssd's mma_kernel, one
+    per tile plan) holds HMMA or HGMMA."""
     tool = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, check=True,
@@ -462,10 +475,12 @@ def check_tensor_cores(build, name):
         fn = chunk.split(None, 1)[0]
         if (fn.startswith("_ZN4tmma") and any(
                 k in fn for k in ("fwd_kernel", "dkdv_kernel", "dq_kernel"))
-                or fn.startswith("_ZN4smma") and "mma_kernel" in fn):
+                or fn.startswith("_ZN4smma") and "mma_kernel" in fn
+                or fn.startswith("_ZN3ssd10mma_kernel")):
             seen[_tmma_label(fn)] = ("HGMMA" if "HGMMA" in chunk else
                                      "HMMA" if "HMMA" in chunk else None)
-    want = 8 if name.endswith("_bwd") else 4        # (dkdv, dq) x 4 head dims
+    want = (SSD_MMA_INSTANCES if name == "ssd_chunked" else
+            8 if name.endswith("_bwd") else 4)      # (dkdv, dq) x 4 head dims
     missing = [k for k, v in seen.items() if v is None]
     if len(seen) != want or missing:
         raise SmokeFailure(f"{name}: bf16 kernels without tensor-core "
@@ -983,18 +998,24 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
 
 SSD_SHAPES = {"mamba2-130m": dict(h=24, p=64, n=128),
               "tiny": dict(h=2, p=32, n=16)}
+# the bf16 kernel's ragged edges: a last 16-row block of P with 8 rows, and
+# N off the warps' 16-column k-steps
+SSD_EDGE = dict(h=3, p=40, n=24)
+SSD_MMA_INSTANCES = 6               # nk 1, 2 x mt 1, 2, 4 (ssd_tile_plan)
 
 
-def ssd_case(torch, gen, *, b, t, h, p, n, dtype, chunk, dev="cuda"):
+def ssd_case(torch, gen, *, b, t, h, p, n, dtype, chunk, init=True,
+             dev="cuda"):
     """Inputs of one ssd_chunked call: x, B, C in ``dtype``; dt (softplus),
-    A (negative) and a nonzero init_state in f32."""
+    A (negative) and a nonzero init_state (None without ``init``) in f32."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
     return dict(x=rnd(b, t, h, p).to(dtype),
                 dt=torch.nn.functional.softplus(rnd(b, t, h) - 1.0),
                 A=-torch.exp(rnd(h) * 0.5), B=rnd(b, t, n).to(dtype),
-                C=rnd(b, t, n).to(dtype), init_state=rnd(b, h, p, n) * 0.1,
+                C=rnd(b, t, n).to(dtype),
+                init_state=rnd(b, h, p, n) * 0.1 if init else None,
                 chunk=chunk)
 
 
@@ -1009,39 +1030,48 @@ def _scaled_err(torch, got, want):
             diff.max().item())
 
 
+def _ssd_check(torch, ssd, c, label, dev):
+    """One ssd_chunked call against its plain version; returns the larger
+    max abs error of y and the final state."""
+    t = c["x"].shape[1]
+    y, st = ssd.ssd_chunked(*_ssd_args(c), chunk=c["chunk"])
+    _sync(torch, dev)
+    wy, ws = ssd.ssd_chunked_ref(*_ssd_args(c),
+                                 chunk=ssd.clamp_chunk(c["chunk"], t))
+    tol = TOL[str(c["x"].dtype).split(".")[1]]
+    (sy, ay), (ss, as_) = (_scaled_err(torch, y, wy),
+                           _scaled_err(torch, st, ws))
+    log(f"[kernel vs plain] ssd_chunked {label}: max_abs_err y={ay:.3e} "
+        f"state={as_:.3e} (check |err| <= {tol:g} * max(1, |plain|))")
+    if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+        raise SmokeFailure(f"ssd_chunked not finite ({label})")
+    if not max(sy, ss) <= tol:
+        raise SmokeFailure(f"ssd_chunked disagrees with its plain version "
+                           f"({label}): {max(sy, ss)} > {tol}")
+    return max(ay, as_)
+
+
 def phase_ssd_correctness(torch, args, dev="cuda"):
     """ssd_chunked against its plain version on the card (y and final
-    state), and the gather route (dt = 0 past a random per-row index)
-    against the token-by-token oracle's collected states:
-    |kernel - plain| <= tol * max(1, |plain|)."""
+    state): at the mamba2-130m and tiny shapes, t from 1 to 2048, chunk 16
+    and 64, bf16 and fp32; then the bf16 kernel's edges (a ragged P block
+    and N, init_state None), two calls bitwise equal, a call captured in a
+    CUDA graph replayed on new inputs (bitwise equal to an eager call on
+    them), a fully masked window (the state bit for bit), and the gather
+    route (dt = 0 past a random per-row index) against the token-by-token
+    oracle's collected states: |kernel - plain| <= tol * max(1, |plain|)."""
     from repro_torch.kernels import ssd
     gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
     worst = 0.0
     for shape, dims in SSD_SHAPES.items():
-        for t in (9, 16, 50, 2048):
+        for t in (1, 9, 16, 17, 50, 65, 2048):
             for chunk in (16, 64):
                 for dtype in (torch.bfloat16, torch.float32):
                     c = ssd_case(torch, gen, b=4, t=t, dtype=dtype,
                                  chunk=chunk, dev=dev, **dims)
-                    y, st = ssd.ssd_chunked(*_ssd_args(c), chunk=chunk)
-                    _sync(torch, dev)
-                    wy, ws = ssd.ssd_chunked_ref(
-                        *_ssd_args(c), chunk=ssd.clamp_chunk(chunk, t))
-                    tol = TOL[str(dtype).split(".")[1]]
-                    (sy, ay), (ss, as_) = (_scaled_err(torch, y, wy),
-                                           _scaled_err(torch, st, ws))
-                    label = f"{shape} t={t} chunk={chunk} {dtype}"
-                    log(f"[kernel vs plain] ssd_chunked {label}: max_abs_err "
-                        f"y={ay:.3e} state={as_:.3e} (check |err| <= {tol:g}"
-                        f" * max(1, |plain|))")
-                    if not (torch.isfinite(y).all() and
-                            torch.isfinite(st).all()):
-                        raise SmokeFailure(f"ssd_chunked not finite ({label})")
-                    if not max(sy, ss) <= tol:
-                        raise SmokeFailure(f"ssd_chunked disagrees with its "
-                                           f"plain version ({label}): "
-                                           f"{max(sy, ss)} > {tol}")
-                    worst = max(worst, ay, as_)
+                    worst = max(worst, _ssd_check(
+                        torch, ssd, c, f"{shape} t={t} chunk={chunk} {dtype}",
+                        dev))
         for t in (9, 16):
             for dtype in (torch.bfloat16, torch.float32):
                 c = ssd_case(torch, gen, b=4, t=t, dtype=dtype, chunk=64,
@@ -1065,7 +1095,58 @@ def phase_ssd_correctness(torch, args, dev="cuda"):
                     raise SmokeFailure(f"ssd_chunked gather route disagrees "
                                        f"({label}): {sg} > {tol}")
                 worst = max(worst, ag)
+    for dtype in (torch.bfloat16, torch.float32):
+        for t, chunk, init in ((9, 64, True), (50, 16, True), (65, 64, False)):
+            c = ssd_case(torch, gen, b=2, t=t, dtype=dtype, chunk=chunk,
+                         init=init, dev=dev, **SSD_EDGE)
+            worst = max(worst, _ssd_check(
+                torch, ssd, c, f"P-block edge {SSD_EDGE} t={t} chunk={chunk} "
+                f"init={init} {dtype}", dev))
+        c = ssd_case(torch, gen, b=4, t=16, dtype=dtype, chunk=64, init=False,
+                     dev=dev, **SSD_SHAPES["mamba2-130m"])
+        worst = max(worst, _ssd_check(
+            torch, ssd, c, f"mamba2-130m t=16 init_state=None {dtype}", dev))
+        _ssd_repeat_and_graph(torch, ssd, gen, dtype, dev)
+        c = ssd_case(torch, gen, b=4, t=16, dtype=dtype, chunk=64, dev=dev,
+                     **SSD_SHAPES["mamba2-130m"])
+        x, dt, A, B, C, s0 = _ssd_args(c)
+        _, same = ssd.ssd_chunked(x, dt * 0, A, B, C, s0, chunk=64)
+        _sync(torch, dev)
+        log(f"[kernel vs plain] ssd_chunked fully masked window {dtype}: "
+            f"state == init_state bit for bit: {torch.equal(same, s0)}")
+        if not torch.equal(same, s0):
+            raise SmokeFailure(f"ssd_chunked: a fully masked window moved the "
+                               f"state ({dtype})")
     return {"ssd_chunked": worst}
+
+
+def _ssd_repeat_and_graph(torch, ssd, gen, dtype, dev):
+    """Two calls at the verify window's shapes are bitwise equal; a call
+    captured in a CUDA graph, replayed after new inputs are copied into
+    its buffers, equals an eager call on them bit for bit."""
+    c = ssd_case(torch, gen, b=4, t=9, dtype=dtype, chunk=64, dev=dev,
+                 **SSD_SHAPES["mamba2-130m"])
+    args = _ssd_args(c)
+    first, second = (ssd.ssd_chunked(*args, chunk=64) for _ in range(2))
+    _sync(torch, dev)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    graph, outs = capture(torch, lambda a: ssd.ssd_chunked(*a, chunk=64),
+                          [args])
+    new = _ssd_args(ssd_case(torch, gen, b=4, t=9, dtype=dtype, chunk=64,
+                             dev=dev, **SSD_SHAPES["mamba2-130m"]))
+    for buf, val in zip(args, new):
+        buf.copy_(val)
+    graph.replay()
+    _sync(torch, dev)
+    eager = ssd.ssd_chunked(*new, chunk=64)
+    _sync(torch, dev)
+    replay = all(torch.equal(a, b) for a, b in zip(outs[0], eager))
+    log(f"[kernel vs plain] ssd_chunked {dtype}: two calls bitwise equal: "
+        f"{same}; CUDA-graph replay on new inputs == eager call: {replay}")
+    if not (same and replay):
+        raise SmokeFailure(f"ssd_chunked is not deterministic or does not "
+                           f"replay ({dtype}): repeat {same}, replay {replay}")
+    del graph
 
 
 def ssd_bound_ms(c):

@@ -14,7 +14,9 @@ the JAX package:
 ``ssd_ref`` runs the recurrence token by token (the oracle; with
 ``collect_states`` it returns every token's state). ``ssd_chunked_ref`` is
 the plain chunked version. ``ssd_chunked`` launches ``csrc/ssd_chunked.cu``
-for CUDA tensors and takes ``ssd_chunked_ref`` only for CPU tensors; every
+for CUDA tensors (bf16 inputs on the tensor cores, tiled by
+``ssd_tile_plan``; float32 inputs on an f32 loop) and takes
+``ssd_chunked_ref`` only for CPU tensors; every
 Mamba2 scan of the port's model goes through it. A token with dt = 0 leaves
 the state unchanged and adds nothing to it, so padding t with dt = 0 (the
 wrapper) and masking the tail of a window with dt = 0 (the state gather of
@@ -26,13 +28,17 @@ wrapper raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .decode_attention import _DTYPE_CODE, launch, on_card, ptr
 
 MAX_CHUNK = 64          # the kernel's chunk bound (its shared-memory tiles)
+# the bf16 route (csrc/ssd_chunked.cu, mma_kernel): one CTA of SSD_WARPS
+# warps per (batch row, head, block of SSD_P_BLOCK rows of P)
+SSD_WARPS = 4
+SSD_P_BLOCK = 16
 
 
 def ssd_ref(x, dt, A, B, C, init_state=None, collect_states: bool = False):
@@ -121,6 +127,38 @@ def clamp_chunk(chunk: int, t: int) -> int:
     return min(chunk, max(8, 1 << (t - 1).bit_length()))
 
 
+def ssd_tile_plan(p: int, n: int, chunk: int) -> Tuple[int, int, int]:
+    """(P blocks, nk, mt) of the bf16 kernel for head dim ``p``, state
+    dim ``n`` and the clamped ``chunk``.
+
+    The grid is (P blocks, h, b) with P blocks = ceil(p / 16). Each of the
+    CTA's 4 warps holds 16 nk state columns (nk = 1 for n <= 64, 2 for
+    n <= 128: columns past n are zero), and a chunk runs in mt = 1, 2 or 4
+    tiles of 16 token rows (rows past the chunk are zero). The kernel
+    copies 16 bytes at a time, so p and n must be multiples of 8; n past
+    128 and chunk past 64 are refused. A function of integers, so the
+    plan never reads a device value.
+    """
+    args = (p, n, chunk)
+    if not all(isinstance(v, int) and not isinstance(v, bool) for v in args):
+        raise TypeError(f"ssd_tile_plan takes Python ints, got "
+                        f"{[type(v).__name__ for v in args]}")
+    if min(args) < 1:
+        raise ValueError(f"ssd_tile_plan needs positive sizes, got {args}")
+    if p % 8 or n % 8:
+        raise ValueError(f"the bf16 ssd_chunked kernel needs P and N multiples "
+                         f"of 8 (16-byte copies), got P={p} N={n}")
+    if n > 2 * SSD_WARPS * 16:
+        raise ValueError(f"the bf16 ssd_chunked kernel holds N <= "
+                         f"{2 * SSD_WARPS * 16} state columns, got N={n}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
+    nk = 1 if n <= SSD_WARPS * 16 else 2
+    tiles = -(-chunk // 16)
+    mt = 1 << (tiles - 1).bit_length()
+    return -(-p // SSD_P_BLOCK), nk, mt
+
+
 def _check(x, dt, A, B, C, init_state, chunk):
     b, t, h, p = x.shape
     n = B.shape[-1]
@@ -165,7 +203,9 @@ def ssd_chunked(x, dt, A, B, C, init_state: Optional[torch.Tensor] = None, *,
     padded to a chunk multiple with dt = 0, as the TPU wrapper does; the
     kernel pads in its loads, the plain version with zeros. CUDA tensors
     launch ``csrc/ssd_chunked.cu``: x, B, C float32 or bfloat16 (one
-    dtype), dt, A and init_state float32, all contiguous, chunk <= 64.
+    dtype), dt, A and init_state float32, all contiguous, chunk <= 64;
+    for bf16 also the shapes ``ssd_tile_plan`` takes and 16-byte aligned
+    x, B, C and init_state.
     """
     b, t, h, p = x.shape
     chunk = clamp_chunk(chunk, t)
@@ -173,11 +213,19 @@ def ssd_chunked(x, dt, A, B, C, init_state: Optional[torch.Tensor] = None, *,
         return ssd_chunked_ref(x, dt, A, B, C, init_state, chunk=chunk)
     _check(x, dt, A, B, C, init_state, chunk)
     n = B.shape[-1]
+    nk = mt = 0                 # the f32 loop takes no tile plan
+    if x.dtype == torch.bfloat16:
+        _, nk, mt = ssd_tile_plan(p, n, chunk)
+        for name, a in (("x", x), ("B", B), ("C", C),
+                        ("init_state", init_state)):
+            if a is not None and a.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned for the "
+                                 f"bf16 kernel's copies")
     y = torch.empty_like(x)
     state = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
     s0 = ctypes.c_void_p(None) if init_state is None else ptr(init_state)
     launch("ssd_chunked", x, ptr(x), ptr(dt), ptr(A), ptr(B), ptr(C), s0,
            ptr(y), ptr(state),
            *(ctypes.c_int(v) for v in (b, t, h, p, n, chunk,
-                                       _DTYPE_CODE[x.dtype])))
+                                       _DTYPE_CODE[x.dtype], nk, mt)))
     return y, state

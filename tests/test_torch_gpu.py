@@ -807,6 +807,11 @@ def _scaled_close(got, want, tol):
     (2, 9, 2, 32, 16, 8, True),        # tiny-ssm
     (3, 50, 2, 32, 16, 16, True),
     (1, 2048, 2, 32, 16, 64, True),    # a long scan of 32 chunks
+    (4, 1, 24, 64, 128, 64, True),     # one token
+    (4, 17, 24, 64, 128, 64, True),    # a chunk of 32 with 15 rows past t
+    (2, 65, 24, 64, 128, 64, False),   # a chunk of 64, then one token
+    (2, 16, 3, 40, 128, 16, True),     # a P block of 8 rows
+    (2, 23, 3, 40, 24, 16, False),     # and N off the warps' k-steps
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -840,6 +845,30 @@ def test_ssd_gather_route_on_card(cuda, dtype, tol):
     assert torch.equal(same, s0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_kernel_is_deterministic_and_replays(cuda, dtype):
+    """Two calls are bitwise equal; a call captured in a CUDA graph and
+    replayed after new inputs are copied into its buffers equals an eager
+    call on them bit for bit (the wrapper reads no device value)."""
+    ins = _ssd_inputs(cuda, 4, 9, 24, 64, 128, dtype)
+    first, second = ssd.ssd_chunked(*ins), ssd.ssd_chunked(*ins)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd.ssd_chunked(*ins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd.ssd_chunked(*ins)
+    new = _ssd_inputs(cuda, 4, 9, 24, 64, 128, dtype, seed=1)
+    for buf, val in zip(ins, new):
+        buf.copy_(val)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, ssd.ssd_chunked(*new)))
+
+
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
     x, dt, A, B, C, s0 = _ssd_inputs(cuda, 1, 16, 2, 32, 16, torch.float32)
     with pytest.raises(TypeError):                  # mixed dtypes
@@ -854,6 +883,16 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
                         A, B, C, s0)
     with pytest.raises(NotImplementedError):        # no backward kernel yet
         ssd.ssd_chunked(x.requires_grad_(True), dt, A, B, C, s0)
+    # the bf16 kernel: N past 128 or off 8, P off 8, a misaligned x
+    for p, n in ((64, 136), (64, 20), (36, 16)):
+        ins = _ssd_inputs(cuda, 1, 9, 2, p, n, torch.bfloat16)
+        with pytest.raises(ValueError):
+            ssd.ssd_chunked(*ins)
+    xb, dt, A, B, C, s0 = _ssd_inputs(cuda, 1, 9, 2, 32, 16, torch.bfloat16)
+    off = torch.empty(xb.numel() + 1, dtype=xb.dtype, device=cuda)[1:]
+    off = off.view(xb.shape).copy_(xb)
+    with pytest.raises(ValueError):
+        ssd.ssd_chunked(off, dt, A, B, C, s0)
 
 
 HYBRID = dict(name="hybrid-test", arch_type="hybrid", num_layers=4,

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Device times of the four serving-attention kernels, beside SDPA.
+"""Device times of the serving kernels: the four attention kernels
+beside SDPA, and the Mamba2 scan ssd_chunked.
 
   python3 tools/time_serve_kernels.py [--src DIR] [--seed 0]
 
 Builds ``decode_attention_paged``, ``decode_attention``,
-``tree_attention_paged`` and ``tree_attention`` from the ``repro_torch``
-package under ``--src`` (default: this checkout's ``src``) and runs
-``chip_smoke.py``'s timing phase on them: at the full-width engine's
-shapes and at kv 1k-4k, each kernel and SDPA with its boolean mask by
-device time (one CUDA graph holding one call per rotating input set,
-replayed between CUDA events) and by eager calls, beside the plain
-version and the bound. ``--src`` may name the ``src`` of another tree
+``tree_attention_paged``, ``tree_attention`` and ``ssd_chunked`` from the
+``repro_torch`` package under ``--src`` (default: this checkout's
+``src``) and runs ``chip_smoke.py``'s timing phases on them: at the
+full-width engine's shapes and at kv 1k-4k, each attention kernel and
+SDPA with its boolean mask, and ssd_chunked at mamba2-130m's shapes (b 4,
+bf16; t = 9, 16 and 2048), by device time (one CUDA graph holding one
+call per rotating input set, replayed between CUDA events) and by eager
+calls, beside the plain version and the bound. ``--src`` may name the ``src`` of another tree
 (a parent unpacked with ``git archive``), so two versions are timed in
 one call on one card: run the script once per tree, in turns. Prints the
 card's name and power limit, one line per timing row, and one JSON line.
@@ -24,7 +26,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVING = ("decode_attention_paged", "decode_attention",
-           "tree_attention_paged", "tree_attention")
+           "tree_attention_paged", "tree_attention", "ssd_chunked")
 
 
 def main(argv=None) -> int:
@@ -48,8 +50,9 @@ def main(argv=None) -> int:
     build.build(list(SERVING))
     chip_smoke.log(f"[card] {card}; torch {torch.__version__}; kernels from "
                    f"{src}")
-    timing = chip_smoke.phase_timing(torch, F, argparse.Namespace(
-        seed=args.seed, prompt_len=256, max_new=128))
+    ns = argparse.Namespace(seed=args.seed, prompt_len=256, max_new=128)
+    timing = chip_smoke.phase_timing(torch, F, ns)
+    timing.update(chip_smoke.phase_ssd_timing(torch, ns))
     chip_smoke.log(json.dumps({"src": str(src), "card": card,
                                "timings": timing}))
     return 0
