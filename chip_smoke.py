@@ -13,8 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      tree_attention, flash_attention(_bwd), pard_attention(_bwd),
      ssd_chunked; for the training kernels, the four serving kernels and
      ssd_chunked each bf16 instance's registers and spills (a spill fails;
-     16 serving instances: 4 kernels x 4 head dims, each named with its
-     mask and K/V addressing; 6 ssd instances, one per tile plan), and a
+     48 serving instances: 4 kernels x 4 head dims x 3 K/V dtypes (bf16,
+     int8, fp8 e4m3), each named with its mask, K/V addressing and K/V
+     dtype; 6 ssd instances, one per tile plan), and a
      check that the SASS of every bf16 product kernel
      (``cuobjdump -sass``) holds HGMMA or HMMA;
   3. kernel vs plain: each attention kernel against its plain PyTorch
@@ -28,7 +29,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      16, G = 7 across the mma and CTA row tiles; on contiguous caches
      kv_len past S and a tree window that ends at S), two calls bitwise
      equal, and a call captured in a CUDA graph replayed after kv_len /
-     q_pos are rewritten in place; ssd_chunked (y and final state) at the
+     q_pos are rewritten in place; the int8 and fp8 K/V routes of all four
+     (quantized as the model appends, f32 scales; bf16 q on the tensor-core
+     loop, f32 q on the f32 loop) at D 128 / 64 / 48 / 32, G 4 and 7, pages
+     of 64 / 16 / 8, window + softcap, the 31-slot window, rows that see no
+     key, contiguous kv_len past S and a tree window that ends at S, each
+     with a bitwise repeat and a CUDA-graph replay; ssd_chunked (y and
+     final state) at the
      mamba2-130m and tiny shapes, t in {1, 9, 16, 17, 50, 65, 2048},
      chunk 16 and 64, a nonzero initial state, bf16 and fp32, at a ragged
      P block and N and with init_state None; two calls bitwise equal, a
@@ -42,7 +49,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      their eager per-call times beside, and the plain version's eager
      time, on the same inputs at the engine's shapes and at kv 1k-4k
      (cold L2: inputs rotate over more than 128 MB), beside the least time
-     the card could take;
+     the card could take; the int8 and fp8 routes of the four serving
+     kernels at the same shapes (bound: 1-byte codes and a 4-byte scale per
+     position and kv head), with SDPA over the pre-dequantized bf16 K/V as
+     a labelled yardstick (no PyTorch call attends over 8-bit K/V);
   5. reference: tiny-target / tiny-draft in fp32 on the card — forward
      logits against the CPU plain path; greedy tokens of flat PARD, a tree,
      a degenerate chain (1,)*K, on paged and contiguous KV, all equal to
@@ -54,8 +64,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. engine at full width (llama3.1-8b target, llama3.2-1b draft, random
      bf16 weights from --seed, K=8, max_batch 4): paged PARD (the
      defaults), AR, the paged adaptive tree (default bank, 31-slot window),
-     contiguous flat PARD and the contiguous static tree
-     (2,2,1,1,1,1,1,1); then mamba2-130m as target (--seed) and draft
+     contiguous flat PARD, the contiguous static tree (2,2,1,1,1,1,1,1),
+     paged PARD on int8 KV and the paged adaptive tree on fp8 KV (their
+     kv_capacity and the share of tokens equal to the bf16 run's up to the
+     first divergence); then mamba2-130m as target (--seed) and draft
      (--seed + 1): paged PARD, contiguous PARD and paged AR; each asserts
      the exact launches of every kernel (one per attention layer per step;
      per Mamba2 layer one ssd_chunked per forward and one per state
@@ -91,8 +103,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers (a serving-attention kernel's row also lists every timing row of
-phase 4 under ``timings``) and the result line ``{"ok": true, "device":
-{...}}``.
+phase 4 under ``timings``, and its int8 and fp8 routes' error, launches
+and times under ``int8`` / ``fp8``) and the result line ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -109,6 +122,8 @@ PEAK_OPS = {"bfloat16": 989e12,      # dense tensor-core bf16
             "float32": 67e12}        # fp32 outside the tensor cores
 COLD_BYTES = 128 << 20               # rotate inputs past the 50 MB L2
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # by output (q) dtype
+QUANT_NAMES = {"torch.int8": "int8", "torch.float8_e4m3fn": "fp8"}
+ROUTES = ("int8", "fp8")                     # the serving kernels' 8-bit K/V
 REPLACES = {                         # kernel -> the TPU kernel it ports
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:178",
     "decode_attention": "src/repro/kernels/decode_attention.py:115",
@@ -126,11 +141,13 @@ KERNELS = tuple(REPLACES)
 TRAIN_KERNELS = {"flash": ("flash_attention", "flash_attention_bwd"),
                  "pard": ("pard_attention", "pard_attention_bwd")}
 TRAIN_NAMES = tuple(n for pair in TRAIN_KERNELS.values() for n in pair)
-# serving kernels whose bf16 instances run the tensor-core split-KV loop
-# (csrc/serve_attention_mma.cuh): all four, one instance per head dim each
+# serving kernels whose bf16-q instances run the tensor-core split-KV loop
+# (csrc/serve_attention_mma.cuh): all four, one instance per head dim and
+# K/V dtype (bf16, int8, fp8 e4m3) each
 MMA_SERVING = ("decode_attention_paged", "decode_attention",
                "tree_attention_paged", "tree_attention")
-SMMA_INSTANCES = 4 * len(MMA_SERVING)
+SMMA_PER_KERNEL = 4 * 3
+SMMA_INSTANCES = SMMA_PER_KERNEL * len(MMA_SERVING)
 WIDE = (2, 2, 1, 1, 1, 1, 1, 1)      # the default bank's 31-slot template at K=8
 TRAIN_MODEL = "llama3.2-1b"
 TRAIN_SEQ = {"ar": 1024, "pard": 512}   # N per row; PARD packs 512 to T=1726
@@ -204,8 +221,18 @@ def make_case(torch, gen, rng, kind, *, b, tq, hq, hkv, d, ctx, kv_dtype,
     every row; the tree rows in ``dead`` get win_len 0, so with ctx 0 they
     see no key). Paged pools hold exactly the blocks each row needs (block
     0 reserved); contiguous caches are [B, S, Hkv, D]. With ``poison``,
-    block 0 and every slot at or past each row's reach hold +-1e4."""
+    block 0 and every slot at or past each row's reach hold +-1e4. An int8
+    or fp8 ``kv_dtype`` quantizes the K/V as the model appends them
+    (``quantize_kv``: codes and f32 k_scale / v_scale; a poisoned slot
+    becomes codes of +-max at scale 1e4 / max)."""
     from repro_torch.core.spec_decode import TreeTemplate
+    if str(kv_dtype) in QUANT_NAMES:
+        case = make_case(torch, gen, rng, kind, b=b, tq=tq, hq=hq, hkv=hkv,
+                         d=d, ctx=ctx, kv_dtype=torch.float32,
+                         q_dtype=q_dtype, bs=bs, s=s, window=window,
+                         softcap=softcap, poison=poison, template=template,
+                         dead=dead, dev=dev)
+        return quantize_case(case, kv_dtype)
     tree = kind.startswith("tree")
     ctx = torch.tensor([int(x) for x in ctx])
     i32 = dict(device=dev, dtype=torch.int32)
@@ -253,12 +280,34 @@ def make_case(torch, gen, rng, kind, *, b, tq, hq, hkv, d, ctx, kv_dtype,
     return case
 
 
+def quantize_case(case, qdtype):
+    """``case`` with its K/V as ``qdtype`` codes and f32 scales."""
+    from repro_torch.models.attention import quantize_kv
+    case = dict(case)
+    for name in ("k", "v", "k_pages", "v_pages"):
+        if name in case:
+            case[name], case[name[0] + "_scale"] = quantize_kv(case[name],
+                                                               qdtype)
+    return case
+
+
+def route(case):
+    """The K/V route of a case: "int8", "fp8", or None (bf16 / fp32)."""
+    k = case["k"] if "k" in case else case["k_pages"]
+    return QUANT_NAMES.get(str(k.dtype))
+
+
 def _kv(case):
+    """A case's K/V rows [B, S, Hkv, D], dequantized when quantized."""
+    from repro_torch.kernels.decode_attention import dequant, gather_pages
     if "k" in case:
-        return case["k"], case["v"]
-    from repro_torch.kernels.decode_attention import gather_pages
-    return (gather_pages(case["k_pages"], case["block_tables"]),
-            gather_pages(case["v_pages"], case["block_tables"]))
+        k, v, ks, vs = (case.get(n) for n in ("k", "v", "k_scale", "v_scale"))
+    else:
+        t = case["block_tables"]
+        k, v = gather_pages(case["k_pages"], t), gather_pages(case["v_pages"], t)
+        ks, vs = ((gather_pages(case[n], t) if n in case else None)
+                  for n in ("k_scale", "v_scale"))
+    return dequant(k, v, ks, vs)
 
 
 def allowed_mask(torch, case):
@@ -266,8 +315,12 @@ def allowed_mask(torch, case):
     versions compute it."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import tree_attention as ta
-    k, _ = _kv(case)
-    b, s = k.shape[:2]
+    k = case["k"] if "k" in case else case["k_pages"]
+    if "k_pages" in case:                 # a row's reach: MBS pages of bs
+        tables = case["block_tables"]
+        b, s = tables.shape[0], tables.shape[1] * k.shape[1]
+    else:
+        b, s = k.shape[:2]
     if "anc" not in case:
         return da.causal_allowed(case["q_pos"], case["kv_len"], s,
                                  case["window"])
@@ -282,24 +335,28 @@ def allowed_mask(torch, case):
 def bound_ms(torch, case):
     """Least time on the card: the bytes the call must move (q, out, the
     int operands, and each row's K/V entries up to the last key any query
-    sees, read once) over the memory rate, vs the multiply-adds of QK^T
-    and PV over the visible (query, key) pairs at the peak rate of the KV
-    type; the larger of the two."""
+    sees, read once; int8 / fp8: 1-byte codes plus a 4-byte f32 scale per
+    (position, kv head) of K and of V) over the memory rate, vs the
+    multiply-adds of QK^T and PV over the visible (query, key) pairs at
+    the peak rate of the type they run in (the KV type; bf16 for 8-bit
+    K/V under bf16 q, f32 under f32 q); the larger of the two."""
     q = case["q"]
-    k, _ = _kv(case)
+    k = case["k"] if "k" in case else case["k_pages"]
     b, tq, hq, d = q.shape
     hkv = k.shape[2]
     allowed = allowed_mask(torch, case)
     pos = torch.arange(allowed.shape[-1], device=allowed.device)
     last = torch.where(allowed.any(dim=1), pos[None], -1).amax(dim=1) + 1
-    kv_bytes = int(last.sum()) * hkv * d * k.element_size() * 2
+    per_key = d * k.element_size() + (4 if route(case) else 0)
+    kv_bytes = int(last.sum()) * hkv * per_key * 2
     ints = sum(case[n].numel() * 4 for n in ("block_tables", "kv_len",
                                              "q_pos", "win_start", "win_len",
                                              "anc") if n in case)
     nbytes = 2 * q.numel() * q.element_size() + kv_bytes + ints
     ops = 4 * int(allowed.sum()) * hq * d
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[str(k.dtype).split(".")[1]]
+    arith = q.dtype if route(case) else k.dtype
+    t_ops = ops / PEAK_OPS[str(arith).split(".")[1]]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                       else "operations")
 
@@ -443,8 +500,8 @@ def ptxas_report(text):
 
 def _tmma_label(mangled):
     """fwd_kernel<64, CausalMask> from tmma's mangled kernel name;
-    mma_kernel<64, tree, ContigKV> from smma's (its mask flag and K/V
-    addressing); ssd mma_kernel<nk, mt> from ssd's."""
+    mma_kernel<64, tree, ContigKV, int8> from smma's (its mask flag, K/V
+    addressing and K/V dtype); ssd mma_kernel<nk, mt> from ssd's."""
     import re
     ssd_ = re.match(r"_ZN3ssd10mma_kernelILi(\d+)ELi(\d+)E", mangled)
     if ssd_:
@@ -458,6 +515,9 @@ def _tmma_label(mangled):
     if flag:
         tags.append("tree" if flag.group(1) == "1" else "causal")
     tags += [k for k in ("PagedKV", "ContigKV") if k in mangled]
+    kv = re.search(r"KVELi([123])E", rest)
+    if kv:
+        tags.append({"1": "bf16", "2": "int8", "3": "fp8"}[kv.group(1)])
     return f"{name}<{', '.join([d] + tags)}>"
 
 
@@ -480,6 +540,7 @@ def check_tensor_cores(build, name):
             seen[_tmma_label(fn)] = ("HGMMA" if "HGMMA" in chunk else
                                      "HMMA" if "HMMA" in chunk else None)
     want = (SSD_MMA_INSTANCES if name == "ssd_chunked" else
+            SMMA_PER_KERNEL if name in MMA_SERVING else
             8 if name.endswith("_bwd") else 4)      # (dkdv, dq) x 4 head dims
     missing = [k for k, v in seen.items() if v is None]
     if len(seen) != want or missing:
@@ -603,13 +664,70 @@ def correctness_cases(torch):
     window_at_s = [(f"S=1024 window ends at S {dt}", dict(
         target, tq=31, ctx=[993, 1000, 64, 0], s=1024, template=WIDE,
         kv_dtype=t, q_dtype=t)) for dt, t in (("bf16", bf), ("fp32", f32))]
-    return {"decode_attention_paged": decode + split_decode,
-            "decode_attention": decode + split_decode + past_s,
-            "tree_attention_paged": tree + split_tree,
-            "tree_attention": tree + split_tree + window_at_s}
+    # int8 / fp8 K/V with f32 scales: bf16 q on the tensor-core loop's
+    # 8-bit route at D 128 / 64 / 48 / 32, G 4 and 7, pages of 64 / 16 / 8,
+    # window + softcap, the 31-slot window, rows that see no key, empty
+    # splits; f32 q on the f32 loop's dequantizing route
+    quant_decode, quant_tree, quant_past_s, quant_at_s = [], [], [], []
+    for name, qd in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        kq = dict(kv_dtype=qd, q_dtype=bf)
+        quant_decode += [
+            (f"{name} target D=128 G=4 ragged", dict(target, tq=9, ctx=ragged, **kq)),
+            (f"{name} draft D=64 bs 16", dict(draft, bs=16, tq=16,
+                                               ctx=[16, 300, 1000, 2500], **kq)),
+            (f"{name} D=48 G=2 bs 16", dict(mid, tq=16, ctx=ragged, **kq)),
+            (f"{name} D=32 bs 8", dict(tiny, tq=8, ctx=[8, 30, 95, 200], **kq)),
+            (f"{name} G=7 Tq=36 two CTA tiles", dict(g7, bs=64, tq=36, ctx=[36, 777],
+                                                      kv_dtype=qd)),
+            (f"{name} window+softcap", dict(target, tq=9, ctx=[300, 1000, 64, 9],
+                                            window=256, softcap=30.0, **kq)),
+            (f"{name} empty splits, kv 1, no key", dict(target, tq=9,
+                                                        ctx=[4096, 70, 1, 0], **kq)),
+            (f"{name} fp32 q, f32 loop", dict(target, tq=9, ctx=ragged, kv_dtype=qd,
+                                              q_dtype=f32)),
+            (f"{name} fp32 q D=48 window+softcap", dict(
+                mid, tq=16, ctx=[300, 1000, 64, 16], window=100, softcap=50.0,
+                kv_dtype=qd, q_dtype=f32)),
+        ]
+        quant_tree += [
+            (f"{name} target 31-slot bank window", dict(target, tq=31, ctx=tree_ctx, **kq)),
+            (f"{name} no key, short rows", dict(target, tq=31, ctx=[0, 1, 70, 4064],
+                                                dead=(0,), **kq)),
+            (f"{name} window+softcap", dict(target, tq=23, ctx=[300, 1000, 64, 9],
+                                            window=256, softcap=30.0, **kq)),
+            (f"{name} G=7 Tq=31 two CTA tiles bs 16", dict(g7, bs=16, tq=31,
+                                                            ctx=[5, 1000], kv_dtype=qd)),
+            (f"{name} D=48 G=2 32 slots", dict(mid, tq=32, ctx=tree_ctx, **kq)),
+            (f"{name} D=32 bs 8", dict(tiny, tq=11, ctx=[5, 30, 95, 200], **kq)),
+            (f"{name} D=64 32 slots", dict(draft, tq=32, ctx=tree_ctx, **kq)),
+            (f"{name} fp32 q, f32 loop", dict(target, tq=31, ctx=tree_ctx, kv_dtype=qd,
+                                              q_dtype=f32)),
+        ]
+        quant_past_s.append((f"{name} S=1024 kv_len > S", dict(
+            target, tq=9, ctx=[1000, 1030, 700, 1024], s=1024, **kq)))
+        quant_at_s.append((f"{name} S=1024 window ends at S", dict(
+            target, tq=31, ctx=[993, 1000, 64, 0], s=1024, template=WIDE, **kq)))
+    return {"decode_attention_paged": decode + split_decode + quant_decode,
+            "decode_attention": decode + split_decode + past_s + quant_decode
+            + quant_past_s,
+            "tree_attention_paged": tree + split_tree + quant_tree,
+            "tree_attention": tree + split_tree + window_at_s + quant_tree
+            + quant_at_s}
+
+
+def oracle(ref, case):
+    """The plain version of a case. An 8-bit case's comes in f32 (the same
+    arithmetic on q widened): the kernel's bf16 output is then its only
+    rounding, where a second one, to bf16, could put the two a bf16 ulp
+    apart (0.031 once |out| >= 4) with both correct."""
+    if route(case):
+        case = dict(case, q=case["q"].float())
+    return ref(**case)
 
 
 def phase_correctness(torch, args, dev="cuda"):
+    """Every case against its plain version. Returns the worst error per
+    kernel (bf16 / fp32 K/V) and per (kernel, route) of the 8-bit K/V."""
     import numpy as np
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -622,7 +740,7 @@ def phase_correctness(torch, args, dev="cuda"):
             case = make_case(torch, gen, rng, kind, dev=dev, **kw)
             out = fn(**case)
             _sync(torch, dev)
-            want = ref(**case)
+            want = oracle(ref, case)
             if not torch.isfinite(out).all():
                 raise SmokeFailure(f"{name} output not finite ({label})")
             err = (out.float() - want.float()).abs().max().item()
@@ -632,36 +750,41 @@ def phase_correctness(torch, args, dev="cuda"):
             if not err <= tol:
                 raise SmokeFailure(f"{name} disagrees with its plain version "
                                    f"({label}): {err} > {tol}")
-            worst[name] = max(worst[name], err)
+            key = (name, route(case)) if route(case) else name
+            worst[key] = max(worst.get(key, 0.0), err)
     return worst
 
 
 def phase_split_kv(torch, args, dev="cuda"):
-    """The bf16 split-KV loop of the four serving kernels: two calls are
-    bitwise equal; a call captured in a CUDA graph, replayed after kv_len
-    and q_pos are rewritten in place, matches the plain version on the new
-    values."""
+    """The split-KV loop of the four serving kernels, bf16 K/V and the int8
+    and fp8 routes: two calls are bitwise equal; a call captured in a CUDA
+    graph, replayed after kv_len and q_pos are rewritten in place, matches
+    the plain version on the new values."""
     import numpy as np
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
     rng = np.random.default_rng(args.seed + 3)
     fns = kernel_fns()
     bf = torch.bfloat16
-    shape = dict(b=4, hq=32, hkv=8, d=128, bs=64, kv_dtype=bf, q_dtype=bf,
+    shape = dict(b=4, hq=32, hkv=8, d=128, bs=64, q_dtype=bf,
                  ctx=[300, 1000, 2049, 4000])
     worst = {}
     decode, tree = dict(shape, tq=9), dict(shape, tq=31, window=200)
-    for name, kw in (("decode_attention_paged", decode),
-                     ("decode_attention", decode),
-                     ("tree_attention_paged", tree),
-                     ("tree_attention", tree)):
+    for (name, kw), kv_dtype in ((nk, kd) for kd in (bf, torch.int8,
+                                                     torch.float8_e4m3fn)
+                                 for nk in (("decode_attention_paged", decode),
+                                            ("decode_attention", decode),
+                                            ("tree_attention_paged", tree),
+                                            ("tree_attention", tree))):
         fn, ref, kind = fns[name]
-        case = make_case(torch, gen, rng, kind, dev=dev, **kw)
+        case = make_case(torch, gen, rng, kind, dev=dev, kv_dtype=kv_dtype, **kw)
+        key = (name, route(case)) if route(case) else name
+        name_r = f"{name} {route(case)}" if route(case) else name
         first, second = fn(**case), fn(**case)
         _sync(torch, dev)
         same = torch.equal(first, second)
-        log(f"[split-kv] {name}: two calls bitwise equal: {same}")
+        log(f"[split-kv] {name_r}: two calls bitwise equal: {same}")
         if not same:
-            raise SmokeFailure(f"{name}: two calls differ")
+            raise SmokeFailure(f"{name_r}: two calls differ")
         graph, (out,) = capture(torch, lambda c: fn(**c), [case])
         # new contents, same tensors: causal rows 37 keys shorter; tree rows
         # lose their last 3 window slots and move their logical positions
@@ -673,13 +796,13 @@ def phase_split_kv(torch, args, dev="cuda"):
             case["q_pos"] -= 37
         graph.replay()
         _sync(torch, dev)
-        err = (out.float() - ref(**case).float()).abs().max().item()
-        log(f"[split-kv] {name}: CUDA graph replayed with rewritten kv_len "
+        err = (out.float() - oracle(ref, case).float()).abs().max().item()
+        log(f"[split-kv] {name_r}: CUDA graph replayed with rewritten kv_len "
             f"and q_pos vs plain: max_abs_err={err:.3e} tol={TOL['bfloat16']:g}")
         if not err <= TOL["bfloat16"]:
-            raise SmokeFailure(f"{name}: graph replay disagrees with the "
+            raise SmokeFailure(f"{name_r}: graph replay disagrees with the "
                                f"plain version: {err}")
-        worst[name] = err
+        worst[key] = err
         del graph
     return worst
 
@@ -687,13 +810,39 @@ def phase_split_kv(torch, args, dev="cuda"):
 def timing_rows(torch, args):
     """(kernel, label, case kwargs); the first row of each kernel is its
     main row, at the full-width engine's shapes; each kernel also has a
-    row at kv 1k-4k."""
+    row at kv 1k-4k; then the int8 and fp8 routes of each kernel at the
+    engine's shapes (its first such row is the route's row) and at kv
+    1k-4k."""
     bf, f32 = torch.bfloat16, torch.float32
     ctx = [args.prompt_len + args.max_new // 2 + 16 * i for i in range(4)]
     target = dict(b=4, hq=32, hkv=8, d=128, bs=64, kv_dtype=bf, q_dtype=bf)
     draft = dict(b=4, hq=32, hkv=8, d=64, bs=64, kv_dtype=bf, q_dtype=bf)
     # the contiguous engine keeps full rows of max_len (1024) positions
     contig = dict(s=1024)
+    quant = []
+    for name, qd in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        tq = dict(target, kv_dtype=qd)
+        quant += [
+            ("decode_attention_paged", f"{name} target verify @engine ctx",
+             dict(tq, tq=9, ctx=ctx)),
+            ("decode_attention_paged", f"{name} draft window @engine ctx",
+             dict(draft, kv_dtype=qd, tq=16, ctx=[c - 9 for c in ctx])),
+            ("decode_attention_paged", f"{name} target verify @ctx 1k-4k",
+             dict(tq, tq=9, ctx=[1024, 2048, 3072, 4096])),
+            ("tree_attention_paged", f"{name} tree verify 31 slots @engine ctx",
+             dict(tq, tq=31, ctx=ctx, template=WIDE)),
+            ("tree_attention_paged", f"{name} tree verify 31 slots @ctx 1k-4k",
+             dict(tq, tq=31, ctx=[1024, 2048, 3072, 4064], template=WIDE)),
+            ("decode_attention", f"{name} target verify @engine ctx",
+             dict(tq, tq=9, ctx=ctx, **contig)),
+            ("decode_attention", f"{name} target verify @ctx 1k-4k",
+             dict(tq, tq=9, ctx=[1024, 2048, 3072, 4096], s=4096)),
+            ("tree_attention", f"{name} tree verify 31 slots @engine ctx",
+             dict(tq, tq=31, ctx=ctx, template=WIDE, **contig)),
+            ("tree_attention", f"{name} tree verify 31 slots @ctx 1k-4k",
+             dict(tq, tq=31, ctx=[1024, 2048, 3072, 4064], template=WIDE,
+                  s=4096)),
+        ]
     return [
         ("decode_attention_paged", "target verify @engine ctx",
          dict(target, tq=9, ctx=ctx)),
@@ -720,7 +869,7 @@ def timing_rows(torch, args):
         ("tree_attention", "tree verify 31 slots @ctx 1k-4k",
          dict(target, tq=31, ctx=[1024, 2048, 3072, 4064], template=WIDE,
               s=4096)),
-    ]
+    ] + quant
 
 
 def phase_timing(torch, F, args):
@@ -754,10 +903,13 @@ def phase_timing(torch, F, args):
         eager = time_ms(torch, call, sets, 200)
         plain = time_ms(torch, lambda c: ref(**c), sets, 20)
         # library yardstick: one SDPA call with the boolean mask over the
-        # pre-gathered KV (not used by the port), timed the same two ways
+        # pre-gathered KV (not used by the port), timed the same two ways.
+        # No PyTorch call attends over 8-bit K/V: for those rows SDPA over
+        # the pre-dequantized bf16 K/V is a labelled yardstick, not a
+        # library time of the same function
         lib_sets = []
         for c in sets:
-            kc, vc = _kv(c)
+            kc, vc = (x.to(c["q"].dtype) for x in _kv(c))
             lib_sets.append((c["q"].transpose(1, 2), kc.transpose(1, 2),
                              vc.transpose(1, 2),
                              allowed_mask(torch, c)[:, None]))
@@ -769,14 +921,24 @@ def phase_timing(torch, F, args):
         lib = graph_ms(torch, sdpa, lib_sets)
         lib_eager = time_ms(torch, sdpa, lib_sets, 50)
         bnd, by = bound_ms(torch, first)
+        quant = route(first)
+        sdpa_name = "sdpa over dequantized bf16 K/V" if quant else "sdpa"
         log(f"[timing] {name} {label}: kernel {ms:.4f} ms (eager "
-            f"{eager:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms (eager "
-            f"{lib_eager:.4f}), bound {bnd:.5f} ms ({by}); device times from "
-            f"a CUDA graph of {len(sets)} input sets, ctx={kw['ctx']}")
-        row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                   bound_by=by)
-        results.setdefault(name, dict(row, timings=[]))["timings"].append(
-            dict(row, label=label, eager_ms=eager, library_eager_ms=lib_eager))
+            f"{eager:.4f}), plain {plain:.4f} ms, {sdpa_name} {lib:.4f} ms "
+            f"(eager {lib_eager:.4f}), bound {bnd:.5f} ms ({by}); device "
+            f"times from a CUDA graph of {len(sets)} input sets, "
+            f"ctx={kw['ctx']}")
+        if quant:
+            row = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                       bound_by=by, sdpa_dequantized_bf16_ms=lib)
+        else:
+            row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by)
+        entry = results.setdefault(name, dict(row, timings=[]))
+        if quant:
+            entry.setdefault(quant, row)
+        entry["timings"].append(dict(row, label=label, eager_ms=eager,
+                                     library_eager_ms=lib_eager))
         del sets, lib_sets, first
         torch.cuda.empty_cache()
     return results
@@ -928,7 +1090,7 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
     if dev == "cuda" and launches != want:
         raise SmokeFailure(f"engine {label}: launches {launches}, expected "
                            f"{want}")
-    return {c.rid: c.tokens for c in comps}, launches
+    return {c.rid: c.tokens for c in comps}, launches, eng.kv_capacity_bytes()
 
 
 def phase_engine(torch, kernels, args, target="llama3.1-8b",
@@ -952,6 +1114,8 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, tc.vocab_size, size=args.prompt_len)
                for _ in range(args.requests)]
+    # the quantized runs: the int8 route of decode_attention_paged and the
+    # fp8 route of tree_attention_paged, each beside its bf16 run
     runs = [
         ("pard paged", EngineConfig(), "decode_attention_paged"),
         ("ar paged", EngineConfig(mode="ar"), None),
@@ -961,8 +1125,15 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
          "decode_attention"),
         (f"tree {','.join(map(str, WIDE))} contiguous",
          EngineConfig(tree=WIDE, kv_layout="contiguous"), "tree_attention"),
+        ("pard paged int8", EngineConfig(kv_dtype="int8"),
+         ("decode_attention_paged", "int8")),
+        ("adaptive tree paged fp8", EngineConfig(adaptive_tree=True,
+                                                 kv_dtype="fp8"),
+         ("tree_attention_paged", "fp8")),
     ]
-    tokens, main_launches = {}, {}
+    bf16_of = {"pard paged int8": "pard paged",
+               "adaptive tree paged fp8": "adaptive tree paged"}
+    tokens, main_launches, capacity = {}, {}, {}
     for label, cfg, main in runs:
         # warm-up per configuration (library handles, allocator pools),
         # not counted
@@ -971,24 +1142,35 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
         warm.run()
         del warm
         d_p, d_c = (None, None) if cfg.mode == "ar" else (dp, dc)
-        tokens[label], launches = serve(torch, kernels, Engine, cfg, tp, tc,
-                                        d_p, d_c, prompts, args.max_new,
-                                        label, dev)
+        tokens[label], launches, capacity[label] = serve(
+            torch, kernels, Engine, cfg, tp, tc, d_p, d_c, prompts,
+            args.max_new, label, dev)
         if main is not None:
-            main_launches[main] = launches.get(main, 0)
+            kernel = main[0] if isinstance(main, tuple) else main
+            main_launches[main] = launches.get(kernel, 0)
         if dev == "cuda":
             torch.cuda.empty_cache()
+
+    def first_divergence(label, base):
+        shares = []
+        for rid, toks in tokens[label].items():
+            a, b = toks[args.prompt_len:], tokens[base][rid][args.prompt_len:]
+            diff = np.nonzero(a != b)[0]
+            shares.append((diff[0] if diff.size else len(a)) / len(a))
+        return (f"mean {np.mean(shares):.3f} per request "
+                f"{[round(float(s), 3) for s in shares]}")
+
     for label in tokens:
         if label == "ar paged":
             continue
-        shares = []
-        for rid, toks in tokens[label].items():
-            a, b = toks[args.prompt_len:], tokens["ar paged"][rid][args.prompt_len:]
-            diff = np.nonzero(a != b)[0]
-            shares.append((diff[0] if diff.size else len(a)) / len(a))
         log(f"[ar comparison] {label}: share of tokens equal to AR tokens up "
-            f"to the first divergence: mean {np.mean(shares):.3f} per request "
-            f"{[round(float(s), 3) for s in shares]}")
+            f"to the first divergence: {first_divergence(label, 'ar paged')}")
+    for label, base in bf16_of.items():
+        log(f"[quantized kv] {label}: kv_capacity {capacity[label]} B = "
+            f"{capacity[label] / capacity[base]:.4f} x the bf16 run's "
+            f"{capacity[base]} B (scales included); share of tokens equal to "
+            f"the bf16 run's up to the first divergence: "
+            f"{first_divergence(label, base)}")
     return main_launches
 
 
@@ -1315,7 +1497,7 @@ def phase_ssm_engine(torch, kernels, args, dev="cuda"):
         warm.run()
         del warm
         d_p, d_c = (None, None) if ecfg.mode == "ar" else (dp, cfg)
-        tokens[label], launches = serve(torch, kernels, Engine, ecfg, tp, cfg,
+        tokens[label], launches, _ = serve(torch, kernels, Engine, ecfg, tp, cfg,
                                         d_p, d_c, prompts, args.max_new,
                                         label, dev)
         if main is None:
@@ -1839,7 +2021,7 @@ def main(argv=None) -> int:
         phase_build(build)
         errs = phase_correctness(torch, args)
         for name, err in phase_split_kv(torch, args).items():
-            errs[name] = max(errs[name], err)
+            errs[name] = max(errs.get(name, 0.0), err)
         errs.update(phase_ssd_correctness(torch, args))
         timing = phase_timing(torch, F, args)
         timing.update(phase_ssd_timing(torch, args))
@@ -1855,6 +2037,12 @@ def main(argv=None) -> int:
         return 1
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(card)
+    # the serving kernels' int8 / fp8 routes: errors, launches in their
+    # engine runs (the routes a full-width run does not take: null), times
+    for name in MMA_SERVING:
+        for r in ROUTES:
+            timing[name][r].update(max_abs_err=errs[name, r],
+                                   launches=launches.get((name, r)))
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=launches[name],

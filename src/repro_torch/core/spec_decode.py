@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from ..models import forward
-from ..models.attention import (TreeAttnInfo, contiguous_flat_index,
-                                paged_flat_index)
+from ..models.attention import (TreeAttnInfo, as_bytes,
+                                contiguous_flat_index, paged_flat_index)
 from ..models.config import SSM, ModelConfig, scan_plan
 from ..models.ssm import gather_state
 from .acceptance import (greedy_chain_accept, greedy_tree_accept_rows,
@@ -328,8 +328,8 @@ class TemplateBank:
 def _move_entries(leaf, lead: int, src, dst):
     """leaf[..., dst] = leaf[..., src] over the flat entries of the two
     axes after ``lead`` leading axes, gathering before scattering."""
-    flat = leaf.view(tuple(leaf.shape[:lead]) + (-1,)
-                     + tuple(leaf.shape[lead + 2:]))
+    flat = as_bytes(leaf).view(tuple(leaf.shape[:lead]) + (-1,)
+                               + tuple(leaf.shape[lead + 2:]))
     flat.index_copy_(lead, dst, flat.index_select(lead, src))
 
 
@@ -343,7 +343,8 @@ def compact_tree_caches(cfg: ModelConfig, caches, src_pos, dst_start,
     (frozen rows' copies may land on the garbage block, where duplicate
     destinations are harmless); contiguous rows clamp the destination
     start into [0, max_len - depth] like ``lax.dynamic_update_slice`` and
-    the source into the row. Returns ``caches``."""
+    the source into the row. Every leaf moves, so a quantized cache's
+    scales move with their codes (fp8 as bytes). Returns ``caches``."""
     dev = src_pos.device
     dst_pos = dst_start[:, None] + torch.arange(depth, device=dev)[None]
     if tables is None:

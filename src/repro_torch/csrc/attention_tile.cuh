@@ -27,6 +27,13 @@
 // Scores take `scale`, then the optional softcap tanh(s / cap) * cap, then
 // an f32 online softmax. A query that sees no key returns 0.
 //
+// Quantized K/V (DESIGN.md §10): int8 or fp8 (e4m3) codes with float32
+// dequant scales k_scale / v_scale, one per (position, kv head), laid out
+// as the K/V without their last axis ([NB, bs, Hkv] paged, [B, S, Hkv]
+// contiguous): the value is code * scale. This loop dequantizes to f32 as
+// it stages a chunk, the TPU kernel's arithmetic; bf16 q with 8-bit K/V
+// takes the tensor-core loop of serve_attention_mma.cuh instead.
+//
 // What bounds these kernels on an H100: the bytes of K/V they stream. Per
 // key the useful work is 2 * (Tq * G) * D multiply-adds against 2 * D
 // values read, far below the card's operations-per-byte balance point at
@@ -48,6 +55,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,13 +68,20 @@ constexpr int kKeys = 64;   // keys staged per chunk (two per lane)
 constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr float kNegInf = -1e30f;
 
-// 16-byte vector loads converted to f32
+// two e4m3 codes (the low byte first) as f32; exact
+__device__ __forceinline__ float2 fp8x2_to_float2(uint16_t x) {
+  const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(x, __NV_E4M3));
+  return __half22float2(h);
+}
+
+// 16-byte vector loads converted to f32; kQuant: codes, scaled by the caller
 template <typename T>
 struct Vec;
 
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
+  static constexpr bool kQuant = false;
   __device__ static void load(const float* p, float* o) {
     float4 x = *reinterpret_cast<const float4*>(p);
     o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
@@ -77,6 +92,7 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
+  static constexpr bool kQuant = false;
   __device__ static void load(const __nv_bfloat16* p, float* o) {
     uint4 x = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
@@ -89,6 +105,34 @@ struct Vec<__nv_bfloat16> {
   }
   __device__ static void store(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16(x);
+  }
+};
+
+template <>
+struct Vec<int8_t> {
+  static constexpr int N = 16;
+  static constexpr bool kQuant = true;
+  __device__ static void load(const int8_t* p, float* o) {
+    uint4 x = *reinterpret_cast<const uint4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&x);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) o[e] = static_cast<float>(c[e]);
+  }
+};
+
+template <>
+struct Vec<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
+  static constexpr bool kQuant = true;
+  __device__ static void load(const __nv_fp8_e4m3* p, float* o) {
+    uint4 x = *reinterpret_cast<const uint4*>(p);
+    const uint16_t* c = reinterpret_cast<const uint16_t*>(&x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float2 f = fp8x2_to_float2(c[e]);
+      o[2 * e] = f.x;
+      o[2 * e + 1] = f.y;
+    }
   }
 };
 
@@ -105,8 +149,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // K/V addressing: the positions a row can hold (reach), the element
-// offset of (row b, position p, kv head h), and whether `keys` positions
-// from a multiple of `keys` lie in one run of stride hkv * d (runs)
+// offset of (row b, position p, kv head h) (with d = 1: the index of its
+// dequant scale), and whether `keys` positions from a multiple of `keys`
+// lie in one run of stride hkv * d (runs)
 struct PagedKV {          // pools [NB, bs, Hkv, D], tables [B, MBS]
   const int* tables;
   int nb, bs, mbs;
@@ -132,6 +177,8 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
+  const float* k_scale;       // int8 / fp8 K/V: [.., .., Hkv]; else null
+  const float* v_scale;
   const int* kv_len;          // [B]
   const int* q_pos;           // [B, Tq]
   const int* win_start;       // [B]      tree mask only
@@ -255,6 +302,15 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(Args a, KV kv) {
         const size_t off = kv.offset(b, p, h, hkv, D) + c;
         Vec<KT>::load(kp + off, kt);
         Vec<KT>::load(vp + off, vt);
+        if constexpr (Vec<KT>::kQuant) {      // dequantize: code * scale
+          const size_t so = kv.offset(b, p, h, hkv, 1);
+          const float sk = a.k_scale[so], sv = a.v_scale[so];
+#pragma unroll
+          for (int e = 0; e < KVN; ++e) {
+            kt[e] *= sk;
+            vt[e] *= sv;
+          }
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < KVN; ++e) kt[e] = vt[e] = 0.f;
@@ -372,12 +428,14 @@ cudaError_t launch_d(int d, const Args& a, const KV& kv, int b, cudaStream_t str
   return cudaErrorInvalidValue;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16; q and K/V both in bfloat16 take
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = fp8 e4m3 (K/V
+// only, with scales); bfloat16 q with bfloat16 or 8-bit K/V takes
 // serve_attention_mma.cuh, not this loop. Returns a cudaError_t (0 = ok).
 template <class KV, bool kTree>
 int dispatch(const Args& a, const KV& kv, int b, int d, int q_dtype, int kv_dtype,
              void* stream) {
-  if (b <= 0 || a.tq <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0)
+  if (b <= 0 || a.tq <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0 ||
+      (kv_dtype >= 2 && (!a.k_scale || !a.v_scale)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
@@ -387,6 +445,10 @@ int dispatch(const Args& a, const KV& kv, int b, int d, int q_dtype, int kv_dtyp
     err = launch_d<float, __nv_bfloat16, KV, kTree>(d, a, kv, b, s);
   else if (q_dtype == 1 && kv_dtype == 0)
     err = launch_d<__nv_bfloat16, float, KV, kTree>(d, a, kv, b, s);
+  else if (q_dtype == 0 && kv_dtype == 2)
+    err = launch_d<float, int8_t, KV, kTree>(d, a, kv, b, s);
+  else if (q_dtype == 0 && kv_dtype == 3)
+    err = launch_d<float, __nv_fp8_e4m3, KV, kTree>(d, a, kv, b, s);
   return static_cast<int>(err);
 }
 

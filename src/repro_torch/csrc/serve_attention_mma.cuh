@@ -1,5 +1,6 @@
-// Serving attention on Hopper's tensor cores (sm_90a): the bfloat16
-// instances (q and K/V in bf16) of the four serving kernels.
+// Serving attention on Hopper's tensor cores (sm_90a): the bfloat16-q
+// instances (K/V in bf16, or quantized to int8 / fp8 e4m3 with f32 scales)
+// of the four serving kernels.
 //
 //   decode_attention_paged.cu  causal mask, block-paged pool   (PagedKV)
 //   decode_attention.cu        causal mask, contiguous cache   (ContigKV)
@@ -48,11 +49,11 @@
 //     the warp sees whole (a vote), the common case; the online softmax is
 //     f32 (log2 units, ex2.approx, m and l per row).
 //     P is rounded to bf16 for the P V product, as FlashAttention does,
-//     while l sums the f32 P. That adds at most 2^-9 * max|v| to an output
-//     (each p_j moves by at most 2^-9 p_j; the output is a convex
-//     combination of V rows), under 1e-2 for |v| <= 5, inside the bf16
-//     tolerance of 2e-2. Q K^T is exact up to f32 summation order: a
-//     product of two bf16 values is exact in f32.
+//     while l sums the f32 P. That adds at most 2^-8 * max|v| to an output
+//     (bf16 keeps 8 significant bits, so each p_j moves by at most 2^-8
+//     p_j; the output is a convex combination of V rows), under 2e-2 for
+//     |v| <= 5, the bf16 tolerance. Q K^T is exact up to f32 summation
+//     order: a product of two bf16 values is exact in f32.
 //   - Split-KV across a thread-block cluster of cs CTAs (1..8, portable).
 //     The host picks cs from shapes alone (split_kv_plan in
 //     kernels/decode_attention.py: B * Hkv * row tiles against 90 % of the
@@ -84,6 +85,31 @@
 //     entry; smaller pages (the tiny configs' 8 and 16) look one up per key
 //     row. Rows are padded by 16 bytes in shared memory, so ldmatrix reads
 //     no bank twice.
+//   - Quantized K/V (int8 or fp8 e4m3 codes, a f32 scale per key and kv head;
+//     DESIGN.md §10) stream at one byte a value: each 16-byte cp.async
+//     carries 16 codes into a ring of 8-bit rows (D + 16 bytes), and 4-byte
+//     cp.async copies stage the chunk's 64 K and 64 V scales beside it (a
+//     zero-filled key gets code 0 and scale 0, so nothing but 0 reaches P V).
+//     ldmatrix reads 16-bit elements only, so after the chunk lands all 8
+//     warps widen its codes into one bf16 K/V tile of the bf16 layout (with
+//     ALU bit operations, widen16), and a second barrier per chunk hands the
+//     tile to the row warps, whose products are the bf16 route's. The
+//     widening is exact: an int8 code (|c| <= 127) and every e4m3 value have
+//     at most 8 significant bits and a bf16 exponent. The scales never enter
+//     the tile: k_scale multiplies each f32 score column before the softmax
+//     scale, the softcap and the mask (S = Q K^T is exact up to f32
+//     summation, as for bf16), and v_scale multiplies P, while l sums the
+//     unscaled P: O = sum_j p_j s_j v_j / sum_j p_j. The product p_j s_j
+//     enters P V as a bf16 pair hi + lo (|x - hi - lo| <= 2^-16 |x|), twice
+//     the P V products: rounded to one bf16, a row that sees one key would
+//     get its value times a scale rounded by up to 2^-8, which with the
+//     output's own bf16 rounding passes the 2e-2 tolerance once |v| > 4 (the
+//     bf16 route returns that value exactly). So the 8-bit route's only
+//     rounding of note is the output's. Dequantizing into the tile (bf16(code
+//     * scale)) would round every K/V value too. Nothing overlaps the
+//     widening pass and its barrier with the products, so at long contexts
+//     the 8-bit route takes longer than the bf16 route although it moves
+//     about half the bytes (PERF.md, PR 23).
 //
 // Head dims 32, 48, 64 and 128: all multiples of 16, so no padding.
 #pragma once
@@ -107,12 +133,26 @@ constexpr int kMaxCluster = 8;   // portable cluster size
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// bytes of dynamic shared memory for R query rows: the K/V ring and Q in
-// bf16 rows of D + 8 (16 bytes of padding), then m and l per row. The f32
-// partials [R][D + 4] reuse the ring after the key loop.
-template <int D>
+// K/V dtype codes: 1 = bfloat16, 2 = int8, 3 = fp8 e4m3 (with scales)
+
+// bytes of the K/V stream for R query rows, reused by the f32 partials
+// [R][D + 4] after the key loop. bf16: the ring of kStages x {K, V} in bf16
+// rows of D + 8 (16 bytes of padding). 8-bit: the ring of codes in rows of
+// D + 16 bytes and of the K and V scales, then one bf16 {K, V} tile.
+template <int D, int C>
+__host__ __device__ constexpr size_t stream_bytes(int rows) {
+  const size_t ring =
+      C == 1 ? sizeof(bf16) * 2 * kStages * kKeys * (D + 8)
+             : (D + 16 + sizeof(float)) * 2 * kStages * kKeys + sizeof(bf16) * 2 * kKeys * (D + 8);
+  const size_t part = sizeof(float) * rows * (D + 4);
+  return ring > part ? ring : part;
+}
+
+// bytes of dynamic shared memory for R query rows: the K/V stream, Q in
+// bf16 rows of D + 8, then m and l per row
+template <int D, int C>
 __host__ __device__ constexpr size_t smem_bytes(int rows) {
-  return sizeof(bf16) * (2 * kStages * kKeys + rows) * (D + 8) + sizeof(float) * 2 * rows;
+  return stream_bytes<D, C>(rows) + sizeof(bf16) * rows * (D + 8) + sizeof(float) * 2 * rows;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -123,6 +163,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(in ? 16 : 0));
+}
+
+// 4 bytes global -> shared; zero-filled when !in
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -168,19 +214,72 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// (a, b) as bf16 pairs hi = bf16(x), lo = bf16(x - hi): hi + lo within
+// 2^-16 |x| of x
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack(a - f.x, b - f.y);
+}
+
+// 16 int8 (C 2) or e4m3 (C 3) codes -> 16 bf16 values, exactly, with ALU
+// operations (a conversion instruction runs at a quarter of their rate, and
+// a 64-key chunk widens 8 K codes per thread-key):
+//   int8: the float with bits 0x4B000000 | (c ^ 0x80) is 2^23 + 128 + c;
+//     less 2^23 + 128 it is c, whose top 16 bits are its bf16 (|c| <= 128
+//     has at most 8 significant bits);
+//   e4m3: its bits s eeee mmm placed as the bf16 bits s 0000eeee mmm0000
+//     give the value times 2^-120, subnormals included; widened to f32
+//     (bits << 16) and multiplied by 2^120 (exact: f32 keeps subnormals
+//     without -ftz) it is the value, whose top 16 bits are its bf16.
+// Codes 4 i .. 4 i + 3 lie in word i, the first in its low byte; each pair
+// becomes one bf16x2, the first in the low half.
+template <int C>
+__device__ __forceinline__ void widen16(const uint4& x, uint4 (&o)[2]) {
+  const uint32_t* in = reinterpret_cast<const uint32_t*>(&x);
+  uint32_t* w = reinterpret_cast<uint32_t*>(o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (C == 2) {
+      const uint32_t u = in[i] ^ 0x80808080u;
+      uint32_t f[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)         // bytes: code k, 0, 0, 0x4B
+        f[k] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | k)) -
+                               8388736.f);
+      w[2 * i] = __byte_perm(f[0], f[1], 0x7632);
+      w[2 * i + 1] = __byte_perm(f[2], f[3], 0x7632);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {       // 16-bit lanes (code << 8) of a pair
+        const uint32_t t = __byte_perm(in[i], 0u, h ? 0x3424 : 0x1404);
+        const uint32_t b = (t & 0x80008000u) | ((t & 0x7F007F00u) >> 4);
+        const float lo = __uint_as_float(b << 16) * 0x1p120f;
+        const float hi = __uint_as_float(b & 0xFFFF0000u) * 0x1p120f;
+        w[2 * i + h] = __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+      }
+    }
+  }
+}
+
 // grid (cs, Hkv * row tiles, B), cluster (cs, 1, 1), 32 * kMaxWarps
 // threads: warps 0 .. cw - 1 own 16 rows each, every warp copies.
 // A mma accumulator holds rows gid = lane / 4 and gid + 8 of the warp's 16,
-// columns 2 (lane % 4) and + 1 of each 8-column n-tile.
-template <int D, bool kTree, class KV>
+// columns 2 (lane % 4) and + 1 of each 8-column n-tile. C: the K/V dtype
+// code (1 bf16, 2 int8, 3 fp8 e4m3).
+template <int D, bool kTree, class KV, int C>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     mma_kernel(attn::Args a, KV kv, int cw) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr bool kQ = C != 1;   // 8-bit codes with scales
   constexpr int RS = D + 8;     // bf16 row stride in shared memory
+  constexpr int RS8 = D + 16;   // 8-bit row stride (bytes)
   constexpr int PS = D + 4;     // f32 partial row stride
   constexpr int KS = D / 16;    // k-steps of Q K^T
   constexpr int DN = D / 8;     // n-tiles of P V
-  constexpr int SEG = D / 8;    // 16-byte segments per row
+  constexpr int SEG = D / 8;    // 16-byte segments per bf16 row
+  constexpr int SEG8 = D / 16;  // 16-byte segments per 8-bit row
 
   cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x;           // == cluster.block_rank()
@@ -196,11 +295,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   const bf16* __restrict__ q = static_cast<const bf16*>(a.q);
   const bf16* __restrict__ kp = static_cast<const bf16*>(a.k);
   const bf16* __restrict__ vp = static_cast<const bf16*>(a.v);
+  const uint8_t* __restrict__ kp8 = static_cast<const uint8_t*>(a.k);
+  const uint8_t* __restrict__ vp8 = static_cast<const uint8_t*>(a.v);
   bf16* __restrict__ out = static_cast<bf16*>(a.out);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);     // kStages x {K, V} [kKeys][RS]
-  bf16* qs = ring + 2 * kStages * kKeys * RS;          // [R][RS]
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);     // bf16: kStages x {K, V} [kKeys][RS]
+  uint8_t* ring8 = smem_raw;                           // 8-bit: kStages x {K, V} [kKeys][RS8]
+  float* sring = reinterpret_cast<float*>(ring8 + 2 * kStages * kKeys * RS8);
+                                                       // kStages x {K, V} scales [kKeys]
+  bf16* tile = reinterpret_cast<bf16*>(sring + 2 * kStages * kKeys);  // {K, V} [kKeys][RS]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw + stream_bytes<D, C>(16 * cw));  // [R][RS]
   float* m_s = reinterpret_cast<float*>(qs + R * RS);  // [R]
   float* l_s = m_s + R;                                // [R]
   float* o_s = reinterpret_cast<float*>(smem_raw);     // [R][PS] after the loop
@@ -261,19 +366,58 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
 
   auto load_chunk = [&](int c, int stage) {
     const int c0 = lo + c * kKeys;
-    bf16* ks = ring + stage * 2 * kKeys * RS;
-    bf16* vs = ks + kKeys * RS;
     const bool run = kv.runs(kKeys);      // keys c0 + j at base + j * hkv * D
-    const size_t base = run ? kv.offset(b, c0, h, hkv, D) : 0;
-    for (int idx = tid; idx < kKeys * SEG; idx += nthreads) {
-      const int j = idx / SEG, col = (idx % SEG) * 8;
-      const int p = c0 + j;
-      const bool in = p < hi;
-      size_t off = 0;
-      if (in)
-        off = (run ? base + static_cast<size_t>(j) * hkv * D : kv.offset(b, p, h, hkv, D)) + col;
-      cp_async16(ks + j * RS + col, kp + off, in);
-      cp_async16(vs + j * RS + col, vp + off, in);
+    if constexpr (kQ) {
+      uint8_t* k8 = ring8 + stage * 2 * kKeys * RS8;
+      uint8_t* v8 = k8 + kKeys * RS8;
+      float* ksc = sring + stage * 2 * kKeys;
+      float* vsc = ksc + kKeys;
+      // key p's scale index; its codes start at D times it
+      const size_t base = run ? kv.offset(b, c0, h, hkv, 1) : 0;
+      auto index = [&](int j) {
+        return run ? base + static_cast<size_t>(j) * hkv : kv.offset(b, c0 + j, h, hkv, 1);
+      };
+      for (int idx = tid; idx < kKeys * SEG8; idx += nthreads) {
+        const int j = idx / SEG8, col = (idx % SEG8) * 16;
+        const bool in = c0 + j < hi;
+        const size_t off = in ? index(j) * D + col : 0;
+        cp_async16(k8 + j * RS8 + col, kp8 + off, in);
+        cp_async16(v8 + j * RS8 + col, vp8 + off, in);
+      }
+      for (int j = tid; j < kKeys; j += nthreads) {
+        const bool in = c0 + j < hi;
+        const size_t so = in ? index(j) : 0;
+        cp_async4(ksc + j, a.k_scale + so, in);
+        cp_async4(vsc + j, a.v_scale + so, in);
+      }
+    } else {
+      bf16* ks = ring + stage * 2 * kKeys * RS;
+      bf16* vs = ks + kKeys * RS;
+      const size_t base = run ? kv.offset(b, c0, h, hkv, D) : 0;
+      for (int idx = tid; idx < kKeys * SEG; idx += nthreads) {
+        const int j = idx / SEG, col = (idx % SEG) * 8;
+        const int p = c0 + j;
+        const bool in = p < hi;
+        size_t off = 0;
+        if (in)
+          off = (run ? base + static_cast<size_t>(j) * hkv * D : kv.offset(b, p, h, hkv, D)) + col;
+        cp_async16(ks + j * RS + col, kp + off, in);
+        cp_async16(vs + j * RS + col, vp + off, in);
+      }
+    }
+  };
+
+  // 8-bit codes of a landed stage -> the bf16 tile: K rows 0..63, V rows
+  // 64..127 in both
+  auto widen_chunk = [&](int stage) {
+    const uint8_t* src = ring8 + stage * 2 * kKeys * RS8;
+    for (int idx = tid; idx < 2 * kKeys * SEG8; idx += nthreads) {
+      const int r = idx / SEG8, col = (idx % SEG8) * 16;
+      uint4 w[2];
+      widen16<C>(*reinterpret_cast<const uint4*>(src + r * RS8 + col), w);
+      uint4* dst = reinterpret_cast<uint4*>(tile + r * RS + col);
+      dst[0] = w[0];
+      dst[1] = w[1];
     }
   };
 
@@ -308,13 +452,18 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
         for (int kk = 0; kk < KS; ++kk)
           ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
       }
+      if constexpr (kQ) widen_chunk(it % kStages);
       if (it + kStages - 1 < n)
         load_chunk(c_begin + it + kStages - 1, (it + kStages - 1) % kStages);
       cp_commit();
+      if constexpr (kQ) __syncthreads(); // the bf16 tile is whole
       if (warp >= cw) continue;           // a copying warp only
 
-      const bf16* ks = ring + (it % kStages) * 2 * kKeys * RS;
+      const bf16* ks = kQ ? tile : ring + (it % kStages) * 2 * kKeys * RS;
       const bf16* vs = ks + kKeys * RS;
+      // this lane's scales of n-tile j: keys 8 j + 2 (lane % 4) and + 1
+      const float* ksc = sring + (it % kStages) * 2 * kKeys + 2 * (lane & 3);
+      const float* vsc = ksc + kKeys;
       const int c0 = lo + (c_begin + it) * kKeys;
 
       // S = Q K^T: 16 rows x 64 keys per warp, n-tile j holds keys 8j..8j+7;
@@ -336,8 +485,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
         }
       }
 
-      // scale and softcap, in log2 units; the mask only where some row of
-      // the warp does not see the whole chunk
+      // dequant (k_scale per column), scale and softcap, in log2 units;
+      // the mask only where some row of the warp does not see the whole
+      // chunk
+      if constexpr (kQ) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 sk = *reinterpret_cast<const float2*>(ksc + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= (e & 1) ? sk.y : sk.x;
+        }
+      }
       if (softcap > 0.f) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -397,12 +555,28 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
       }
 
       // O += P V: the S accumulator of keys 16 kk .. 16 kk + 15 is the A
-      // fragment of k-step kk, rounded to bf16; V fragments two at a time
+      // fragment of k-step kk, rounded to bf16 (quantized: P times v_scale
+      // per column, l summed the unscaled P, as a pair hi + lo); V
+      // fragments two at a time
+      if constexpr (kQ) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 sv = *reinterpret_cast<const float2*>(vsc + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= (e & 1) ? sv.y : sv.x;
+        }
+      }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]), pack(s[2 * kk][2], s[2 * kk][3]),
-                                pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t pa[4], pl[4];
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {       // f & 1: row gid + 8; f >> 1: keys + 8
+          const float* sf = s[2 * kk + (f >> 1)] + 2 * (f & 1);
+          if constexpr (kQ)
+            split_bf16(sf[0], sf[1], pa[f], pl[f]);
+          else
+            pa[f] = pack(sf[0], sf[1]);
+        }
 #pragma unroll
         for (int d2 = 0; d2 < D / 16; d2 += 2) {
           uint32_t vf[2][4];
@@ -416,6 +590,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
             if (d2 + u < D / 16) {
               mma(o[2 * (d2 + u)], pa, vf[u][0], vf[u][1]);
               mma(o[2 * (d2 + u) + 1], pa, vf[u][2], vf[u][3]);
+              if constexpr (kQ) {
+                mma(o[2 * (d2 + u)], pl, vf[u][0], vf[u][1]);
+                mma(o[2 * (d2 + u) + 1], pl, vf[u][2], vf[u][3]);
+              }
             }
           }
         }
@@ -483,13 +661,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   cluster.sync();                         // no CTA leaves while its partials are read
 }
 
-template <int D, bool kTree, class KV>
+template <int D, bool kTree, class KV, int C>
 cudaError_t launch(const attn::Args& a, const KV& kv, int b, int cs, int warps,
                    cudaStream_t stream) {
-  auto kern = mma_kernel<D, kTree, KV>;
+  auto kern = mma_kernel<D, kTree, KV, C>;
   const int rows = a.tq * (a.hq / a.hkv);
   const int tile = 16 * warps;
-  const size_t smem = smem_bytes<D>(tile);
+  const size_t smem = smem_bytes<D, C>(tile);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -510,19 +688,30 @@ cudaError_t launch(const attn::Args& a, const KV& kv, int b, int cs, int warps,
   return cudaGetLastError();
 }
 
-// q and K/V in bf16; KV is attn::PagedKV or attn::ContigKV; cs and warps
-// from split_kv_plan. Returns a cudaError_t (0 = ok).
+template <bool kTree, class KV, int C>
+cudaError_t launch_d(int d, const attn::Args& a, const KV& kv, int b, int cs, int warps,
+                     cudaStream_t s) {
+  if (d == 32) return launch<32, kTree, KV, C>(a, kv, b, cs, warps, s);
+  if (d == 48) return launch<48, kTree, KV, C>(a, kv, b, cs, warps, s);
+  if (d == 64) return launch<64, kTree, KV, C>(a, kv, b, cs, warps, s);
+  if (d == 128) return launch<128, kTree, KV, C>(a, kv, b, cs, warps, s);
+  return cudaErrorInvalidValue;
+}
+
+// q in bf16, K/V of dtype code kv_dtype (1 bf16, 2 int8, 3 fp8 e4m3 with
+// a.k_scale / a.v_scale); KV is attn::PagedKV or attn::ContigKV; cs and
+// warps from split_kv_plan. Returns a cudaError_t (0 = ok).
 template <class KV, bool kTree>
-int dispatch(const attn::Args& a, const KV& kv, int b, int d, int cs, int warps, void* stream) {
+int dispatch(const attn::Args& a, const KV& kv, int b, int d, int kv_dtype, int cs, int warps,
+             void* stream) {
   if (b <= 0 || a.tq <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0 || cs < 1 || cs > kMaxCluster ||
-      warps < 1 || warps > kMaxWarps)
+      warps < 1 || warps > kMaxWarps || (kv_dtype != 1 && (!a.k_scale || !a.v_scale)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (d == 32) err = launch<32, kTree, KV>(a, kv, b, cs, warps, s);
-  if (d == 48) err = launch<48, kTree, KV>(a, kv, b, cs, warps, s);
-  if (d == 64) err = launch<64, kTree, KV>(a, kv, b, cs, warps, s);
-  if (d == 128) err = launch<128, kTree, KV>(a, kv, b, cs, warps, s);
+  if (kv_dtype == 1) err = launch_d<kTree, KV, 1>(d, a, kv, b, cs, warps, s);
+  if (kv_dtype == 2) err = launch_d<kTree, KV, 2>(d, a, kv, b, cs, warps, s);
+  if (kv_dtype == 3) err = launch_d<kTree, KV, 3>(d, a, kv, b, cs, warps, s);
   return static_cast<int>(err);
 }
 

@@ -9,6 +9,12 @@ pool through per-row block tables, or to a contiguous ``[B, S, Hkv, D]``
 cache. The serving engine's flat steps go through here: the PARD draft
 window (Tq = 2K), the verify window (Tq = K+1) and prompt chunks.
 
+K/V in bf16 or fp32, or quantized: int8 or fp8 (e4m3) codes with float32
+dequant scales ``k_scale`` / ``v_scale``, one per (position, kv head) of
+the pool ``[NB, bs, Hkv]`` or cache ``[B, S, Hkv]``. The plain versions
+dequantize first (as ``ref._maybe_dequant`` does); the kernels dequantize
+inside their KV stream.
+
 Each wrapper launches its kernel (``csrc/decode_attention_paged.cu``,
 ``csrc/decode_attention.cu``) for CUDA tensors and takes the plain version
 only for CPU tensors. The helpers shared with ``tree_attention`` (the
@@ -27,7 +33,10 @@ from . import build, launches
 
 NEG_INF = -1e30
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
+_Q_DTYPES = (torch.float32, torch.bfloat16)
+QUANT_KV = (torch.int8, torch.float8_e4m3fn)
 _HEAD_DIMS = (32, 48, 64, 128)
 
 # the bf16 tensor-core loop of the serving kernels (csrc/serve_attention_mma.cuh)
@@ -67,13 +76,21 @@ def split_kv_plan(b: int, hkv: int, rows: int, reach: int,
     return max(1, cs), warps
 
 
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or its uint8 view for fp8: PyTorch's index_copy_,
+    index_select and advanced indexing do not all take float8 dtypes, and
+    a move of bytes is exact."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
     """Per-row contiguous view of a paged pool.
 
     pages: [NB, bs, ...]; block_tables: [B, MBS] -> [B, MBS * bs, ...].
     """
-    g = pages[block_tables.long()]                       # [B, MBS, bs, ...]
-    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+    g = as_bytes(pages)[block_tables.long()]             # [B, MBS, bs, ...]
+    g = g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+    return g.view(pages.dtype)
 
 
 def causal_allowed(q_pos, kv_len, s: int, window: int = 0):
@@ -85,6 +102,19 @@ def causal_allowed(q_pos, kv_len, s: int, window: int = 0):
     if window:
         allowed &= kp > qp - window
     return allowed
+
+
+def dequantize_kv(codes, scale):
+    """codes [..., D] x scales [...] -> float32 values."""
+    return codes.float() * scale[..., None].float()
+
+
+def dequant(k, v, k_scale, v_scale):
+    """float32 K/V from codes and their scales, or k, v as they are when
+    no scales are given (the plain versions' first step)."""
+    if k_scale is None and v_scale is None:
+        return k, v
+    return dequantize_kv(k, k_scale), dequantize_kv(v, v_scale)
 
 
 def attend(q, k, v, allowed, *, softcap=0.0, scale=None):
@@ -113,29 +143,42 @@ def attend(q, k, v, allowed, *, softcap=0.0, scale=None):
     return out.reshape(b, tq, hq, d).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, kv_len, q_pos, *, window=0, softcap=0.0,
-                         scale=None):
-    """The contiguous plain version: the causal masked f32 softmax over
-    k, v [B, S, Hkv, D]."""
+def decode_attention_ref(q, k, v, kv_len, q_pos, *, k_scale=None,
+                         v_scale=None, window=0, softcap=0.0, scale=None):
+    """The contiguous plain version: dequantize (with scales), then the
+    causal masked f32 softmax over k, v [B, S, Hkv, D]."""
+    k, v = dequant(k, v, k_scale, v_scale)
     return attend(q, k, v, causal_allowed(q_pos, kv_len, k.shape[1], window),
                   softcap=softcap, scale=scale)
 
 
+def gather_scales(k_scale, v_scale, block_tables):
+    """Each row's scales [B, MBS * bs, Hkv] from scale pools, or Nones."""
+    if k_scale is None:
+        return None, None
+    return (gather_pages(k_scale, block_tables),
+            gather_pages(v_scale, block_tables))
+
+
 def decode_attention_paged_ref(q, k_pages, v_pages, block_tables, kv_len,
-                               q_pos, *, window=0, softcap=0.0, scale=None):
-    """The paged plain version: gather each row's pages into a contiguous
-    view, then the contiguous plain version."""
+                               q_pos, *, k_scale=None, v_scale=None, window=0,
+                               softcap=0.0, scale=None):
+    """The paged plain version: gather each row's pages (and scales) into
+    a contiguous view, then the contiguous plain version."""
+    ks, vs = gather_scales(k_scale, v_scale, block_tables)
     return decode_attention_ref(q, gather_pages(k_pages, block_tables),
                                 gather_pages(v_pages, block_tables), kv_len,
-                                q_pos, window=window, softcap=softcap,
-                                scale=scale)
+                                q_pos, k_scale=ks, v_scale=vs, window=window,
+                                softcap=softcap, scale=scale)
 
 
-def check_inputs(q, k, v, ints):
+def check_inputs(q, k, v, ints, k_scale=None, v_scale=None):
     """Raise on what the attention kernels do not take.
 
-    q: [B, Tq, Hq, D]; k, v: a pool [NB, bs, Hkv, D] or a cache
-    [B, S, Hkv, D]; ``ints``: (name, tensor, shape) of each int32 operand.
+    q: [B, Tq, Hq, D] float32 / bfloat16; k, v: a pool [NB, bs, Hkv, D]
+    or a cache [B, S, Hkv, D] in float32 / bfloat16, or int8 / fp8 with
+    float32 scales k_scale, v_scale of k's shape less D; ``ints``: (name,
+    tensor, shape) of each int32 operand.
     """
     b, tq, hq, d = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[-1] != d:
@@ -146,17 +189,32 @@ def check_inputs(q, k, v, ints):
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not built (kernels take {_HEAD_DIMS})")
-    if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE \
+    if q.dtype not in _Q_DTYPES or k.dtype not in _DTYPE_CODE \
             or v.dtype != k.dtype:
         raise TypeError(f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}: "
-                        f"kernels take float32/bfloat16")
+                        f"kernels take float32/bfloat16 q and "
+                        f"float32/bfloat16/int8/float8_e4m3fn K/V")
+    scales = [("k_scale", k_scale), ("v_scale", v_scale)]
+    if k.dtype in QUANT_KV:
+        for name, t in scales:
+            if t is None:
+                raise ValueError(f"{k.dtype} K/V need {name}")
+            if tuple(t.shape) != tuple(k.shape[:-1]):
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                                 f"expected {tuple(k.shape[:-1])}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {t.dtype}")
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError(f"scales come with int8 / fp8 K/V, not {k.dtype}")
+    scales = [(n, t) for n, t in scales if t is not None]
     for name, t, shape in ints:
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in [("q", q), ("k", k), ("v", v)] + [(n, t) for n, t, _ in ints]:
+    for name, t in [("q", q), ("k", k), ("v", v)] + scales + \
+            [(n, t) for n, t, _ in ints]:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -164,12 +222,6 @@ def check_inputs(q, k, v, ints):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:                 # 16-byte vector loads
             raise ValueError(f"{name} must be 16-byte aligned")
-
-
-def check_scales(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV scales come with the quantized-KV slice of the port")
 
 
 def on_card(q) -> bool:
@@ -198,8 +250,9 @@ def launch(name: str, q, *args):
     launches[name] += 1
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device address; None (no scales) is a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def dims(q, k, scale, window, softcap):
@@ -234,26 +287,28 @@ def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
 
     q: [B, Tq, Hq, D]; k_pages, v_pages: [NB, block, Hkv, D] (block 0 is
     the reserved garbage block); block_tables: [B, MBS] int32; kv_len: [B]
-    int32; q_pos: [B, Tq] int32. Returns [B, Tq, Hq, D] in q's dtype.
-    Quantized pools (``k_scale`` / ``v_scale``) are not ported yet. On the
-    card, q and the pools in bf16 take the split-KV tensor-core loop; the
-    call reads no device value and allocates only its output.
+    int32; q_pos: [B, Tq] int32; k_scale, v_scale: [NB, block, Hkv]
+    float32, with int8 / fp8 pools. Returns [B, Tq, Hq, D] in q's dtype.
+    On the card, bf16 q with bf16, int8 or fp8 pools takes the split-KV
+    tensor-core loop; the call reads no device value and allocates only
+    its output.
     """
-    check_scales(k_scale, v_scale)
     b, tq, _, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if not on_card(q):
-        return decode_attention_paged_ref(q, k_pages, v_pages, block_tables,
-                                          kv_len, q_pos, window=window,
-                                          softcap=softcap, scale=scale)
+        return decode_attention_paged_ref(
+            q, k_pages, v_pages, block_tables, kv_len, q_pos,
+            k_scale=k_scale, v_scale=v_scale, window=window, softcap=softcap,
+            scale=scale)
     check_inputs(q, k_pages, v_pages, (
         ("block_tables", block_tables, (b, block_tables.shape[-1])),
-        ("kv_len", kv_len, (b,)), ("q_pos", q_pos, (b, tq))))
+        ("kv_len", kv_len, (b,)), ("q_pos", q_pos, (b, tq))), k_scale, v_scale)
     nb, bs = k_pages.shape[:2]
     out = torch.empty_like(q)
     head, tail = dims(q, k_pages, scale, window, softcap)
     launch("decode_attention_paged", q, ptr(q), ptr(k_pages), ptr(v_pages),
+           ptr(k_scale), ptr(v_scale),
            ptr(block_tables), ptr(kv_len), ptr(q_pos), ptr(out), *head,
            *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail,
            *plan_args(q, k_pages.shape[2], block_tables.shape[1] * bs))
@@ -268,27 +323,28 @@ def decode_attention(q, k, v, kv_len, q_pos, *,
 
     q: [B, Tq, Hq, D]; k, v: [B, S, Hkv, D]; kv_len: [B] int32 (entries
     past S do not exist: the sweep stops at min(kv_len, S)); q_pos: [B, Tq]
-    int32. Returns [B, Tq, Hq, D] in q's dtype. Unlike the TPU wrapper, S
-    is not padded. Quantized caches (``k_scale`` / ``v_scale``) are not
-    ported yet. On the card, q and the cache in bf16 take the split-KV
-    tensor-core loop, planned with the reach S; the call reads no device
-    value and allocates only its output.
+    int32; k_scale, v_scale: [B, S, Hkv] float32, with int8 / fp8 caches.
+    Returns [B, Tq, Hq, D] in q's dtype. Unlike the TPU wrapper, S is not
+    padded. On the card, bf16 q with a bf16, int8 or fp8 cache takes the
+    split-KV tensor-core loop, planned with the reach S; the call reads no
+    device value and allocates only its output.
     """
-    check_scales(k_scale, v_scale)
     b, tq, _, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if not on_card(q):
-        return decode_attention_ref(q, k, v, kv_len, q_pos, window=window,
+        return decode_attention_ref(q, k, v, kv_len, q_pos, k_scale=k_scale,
+                                    v_scale=v_scale, window=window,
                                     softcap=softcap, scale=scale)
     if k.shape[0] != b:
         raise ValueError(f"cache batch {k.shape[0]} != q batch {b}")
     check_inputs(q, k, v, (("kv_len", kv_len, (b,)),
-                           ("q_pos", q_pos, (b, tq))))
+                           ("q_pos", q_pos, (b, tq))), k_scale, v_scale)
     out = torch.empty_like(q)
     head, tail = dims(q, k, scale, window, softcap)
     s = k.shape[1]
-    launch("decode_attention", q, ptr(q), ptr(k), ptr(v), ptr(kv_len),
+    launch("decode_attention", q, ptr(q), ptr(k), ptr(v), ptr(k_scale),
+           ptr(v_scale), ptr(kv_len),
            ptr(q_pos), ptr(out), *head, ctypes.c_int(s), *tail,
            *plan_args(q, k.shape[2], s))
     return out

@@ -14,9 +14,10 @@ Ancestor masks are uint32 bit patterns. PyTorch code keeps them in int64
 (values in [0, 2**32)); the kernels receive an int32 tensor holding the
 same bits and read it as uint32. ``anc`` may be passed as either.
 
-Each wrapper launches its kernel (``csrc/tree_attention_paged.cu``,
-``csrc/tree_attention.cu``) for CUDA tensors and takes the plain version
-only for CPU tensors.
+K/V may be quantized (int8 / fp8 codes with float32 ``k_scale`` /
+``v_scale``), as in ``decode_attention``. Each wrapper launches its kernel
+(``csrc/tree_attention_paged.cu``, ``csrc/tree_attention.cu``) for CUDA
+tensors and takes the plain version only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .decode_attention import (attend, check_inputs, check_scales, dims,
-                               gather_pages, launch, on_card, plan_args, ptr)
+from .decode_attention import (attend, check_inputs, dequant, dims,
+                               gather_pages, gather_scales, launch, on_card,
+                               plan_args, ptr)
 
 MAX_SLOTS = 32          # one uint32 ancestor mask per query
 
@@ -92,9 +94,12 @@ def _full_win_len(q, win_len):
 
 
 def tree_attention_ref(q, k, v, kv_len, q_pos, win_start, anc, *,
-                       win_len=None, window=0, softcap=0.0, scale=None):
-    """The contiguous plain version over k, v [B, S, Hkv, D]: the tree
-    mask, bounded by eff_len = min(kv_len, win_start + win_len)."""
+                       win_len=None, k_scale=None, v_scale=None, window=0,
+                       softcap=0.0, scale=None):
+    """The contiguous plain version over k, v [B, S, Hkv, D], dequantized
+    first with scales: the tree mask, bounded by eff_len = min(kv_len,
+    win_start + win_len)."""
+    k, v = dequant(k, v, k_scale, v_scale)
     b, s = q.shape[0], k.shape[1]
     win_len = _full_win_len(q, win_len)
     kv_pos = torch.arange(s, device=q.device)[None, :].expand(b, s)
@@ -106,14 +111,17 @@ def tree_attention_ref(q, k, v, kv_len, q_pos, win_start, anc, *,
 
 
 def tree_attention_paged_ref(q, k_pages, v_pages, block_tables, kv_len,
-                             q_pos, win_start, anc, *, win_len=None, window=0,
+                             q_pos, win_start, anc, *, win_len=None,
+                             k_scale=None, v_scale=None, window=0,
                              softcap=0.0, scale=None):
-    """The paged plain version: gather each row's pages into a contiguous
-    view, then the contiguous plain version."""
+    """The paged plain version: gather each row's pages (and scales) into
+    a contiguous view, then the contiguous plain version."""
+    ks, vs = gather_scales(k_scale, v_scale, block_tables)
     return tree_attention_ref(q, gather_pages(k_pages, block_tables),
                               gather_pages(v_pages, block_tables), kv_len,
                               q_pos, win_start, anc, win_len=win_len,
-                              window=window, softcap=softcap, scale=scale)
+                              k_scale=ks, v_scale=vs, window=window,
+                              softcap=softcap, scale=scale)
 
 
 def _tree_ints(q, kv_len, q_pos, win_start, win_len):
@@ -136,12 +144,12 @@ def tree_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
     (block 0 = the reserved garbage block); block_tables: [B, MBS] int32;
     kv_len: [B] int32; q_pos: [B, Tq] int32 logical positions; win_start:
     [B] int32; anc: [B, Tq] ancestor bitmasks (int64, or int32 bits);
-    win_len: optional [B] int32 meaningful window slots (None = Tq).
-    Returns [B, Tq, Hq, D] in q's dtype. Quantized pools are not ported
-    yet. On the card, q and the pools in bf16 take the split-KV
-    tensor-core loop; the call reads no device value.
+    win_len: optional [B] int32 meaningful window slots (None = Tq);
+    k_scale, v_scale: [NB, block, Hkv] float32, with int8 / fp8 pools.
+    Returns [B, Tq, Hq, D] in q's dtype. On the card, bf16 q with bf16,
+    int8 or fp8 pools takes the split-KV tensor-core loop; the call reads
+    no device value.
     """
-    check_scales(k_scale, v_scale)
     b, tq, _, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -149,17 +157,18 @@ def tree_attention_paged(q, k_pages, v_pages, block_tables, kv_len, q_pos,
     if not on_card(q):
         return tree_attention_paged_ref(
             q, k_pages, v_pages, block_tables, kv_len, q_pos, win_start, anc,
-            win_len=win_len, window=window, softcap=softcap, scale=scale)
+            win_len=win_len, k_scale=k_scale, v_scale=v_scale, window=window,
+            softcap=softcap, scale=scale)
     anc32 = anc_int32(anc)
     check_inputs(q, k_pages, v_pages, (
         ("block_tables", block_tables, (b, block_tables.shape[-1])),
         *_tree_ints(q, kv_len, q_pos, win_start, win_len),
-        ("anc", anc32, (b, tq))))
+        ("anc", anc32, (b, tq))), k_scale, v_scale)
     nb, bs = k_pages.shape[:2]
     out = torch.empty_like(q)
     head, tail = dims(q, k_pages, scale, window, softcap)
     launch("tree_attention_paged", q, ptr(q), ptr(k_pages), ptr(v_pages),
-           ptr(block_tables), ptr(kv_len), ptr(q_pos), ptr(win_start),
+           ptr(k_scale), ptr(v_scale), ptr(block_tables), ptr(kv_len), ptr(q_pos), ptr(win_start),
            ptr(win_len), ptr(anc32), ptr(out), *head,
            *(ctypes.c_int(x) for x in (nb, bs, block_tables.shape[1])), *tail,
            *plan_args(q, k_pages.shape[2], block_tables.shape[1] * bs))
@@ -174,29 +183,30 @@ def tree_attention(q, k, v, kv_len, q_pos, win_start, anc, *, win_len=None,
 
     q: [B, Tq, Hq, D], Tq <= 32; k, v: [B, S, Hkv, D]; the other operands
     as in ``tree_attention_paged``. S is not padded: the sweep stops at
-    min(kv_len, S, win_start + win_len). Quantized caches are not ported
-    yet. On the card, q and the cache in bf16 take the split-KV
-    tensor-core loop, planned with the reach S; the call reads no device
-    value.
+    min(kv_len, S, win_start + win_len); k_scale, v_scale: [B, S, Hkv]
+    float32, with int8 / fp8 caches. On the card, bf16 q with a bf16, int8
+    or fp8 cache takes the split-KV tensor-core loop, planned with the
+    reach S; the call reads no device value.
     """
-    check_scales(k_scale, v_scale)
     b, tq, _, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     win_len = _full_win_len(q, win_len)
     if not on_card(q):
         return tree_attention_ref(q, k, v, kv_len, q_pos, win_start, anc,
-                                  win_len=win_len, window=window,
+                                  win_len=win_len, k_scale=k_scale,
+                                  v_scale=v_scale, window=window,
                                   softcap=softcap, scale=scale)
     if k.shape[0] != b:
         raise ValueError(f"cache batch {k.shape[0]} != q batch {b}")
     anc32 = anc_int32(anc)
     check_inputs(q, k, v, (*_tree_ints(q, kv_len, q_pos, win_start, win_len),
-                           ("anc", anc32, (b, tq))))
+                           ("anc", anc32, (b, tq))), k_scale, v_scale)
     out = torch.empty_like(q)
     head, tail = dims(q, k, scale, window, softcap)
     s = k.shape[1]
-    launch("tree_attention", q, ptr(q), ptr(k), ptr(v), ptr(kv_len),
+    launch("tree_attention", q, ptr(q), ptr(k), ptr(v), ptr(k_scale),
+           ptr(v_scale), ptr(kv_len),
            ptr(q_pos), ptr(win_start), ptr(win_len), ptr(anc32), ptr(out),
            *head, ctypes.c_int(s), *tail, *plan_args(q, k.shape[2], s))
     return out

@@ -8,8 +8,9 @@ Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
 the tiny-* configs there). ``--tree 2,2,1,1`` drafts a static candidate
 tree, ``--adaptive-tree`` picks per request from the default bank at depth
 ``--k``; ``--contiguous`` keeps full-length KV rows instead of the paged
-pool. Prints throughput, mean accepted tokens per step, latency
-percentiles, KV usage and, with trees, the template histogram.
+pool; ``--kv-dtype int8`` / ``fp8`` stores quantized KV. Prints
+throughput, mean accepted tokens per step, latency percentiles, KV usage
+(scales included) and, with trees, the template histogram.
 """
 from __future__ import annotations
 
@@ -46,7 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="full-length per-slot KV rows")
     ap.set_defaults(kv_layout="paged")
     ap.add_argument("--kv-block-size", type=int, default=64)
-    ap.add_argument("--kv-dtype", default="bf16", choices=["bf16", "fp32"])
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=["bf16", "fp32", "int8", "fp8"],
+                    help="KV storage; int8 / fp8 (e4m3) keep a float32 "
+                         "scale per (position, kv head)")
     ap.add_argument("--kv-num-blocks", type=int, default=None,
                     help="paged pool size (default: worst-case coverage)")
     ap.add_argument("--prefill-chunk", type=int, default=8,
@@ -104,6 +108,7 @@ def main(argv=None):
           f"tok_p95={lat['tok_p95_ms']:.1f}ms")
     print(f"kv layout={args.kv_layout} dtype={args.kv_dtype} "
           f"capacity={eng.kv_capacity_bytes() / 1e6:.2f}MB "
+          f"(scales {eng.ex.kv_scale_bytes / 1e6:.2f}MB) "
           f"peak_in_use={eng.peak_kv_bytes_in_use / 1e6:.2f}MB")
     if eng.bank is not None:
         print(f"tree bank={eng.bank.key} k={eng.k} "

@@ -16,6 +16,12 @@ Unlike the JAX code, which returns new caches, the port writes each
 window's K/V IN PLACE (``index_copy_`` over the leading two axes of the
 layer's view of the stacked leaf), so a step never copies a cache.
 
+Quantized KV (``kv_dtype`` "int8" / "fp8", e4m3): each cache carries
+``k_scale`` / ``v_scale`` leaves of float32 scales, one per (position, kv
+head), beside the 8-bit ``k`` / ``v``. A window's K/V is quantized at
+append (``quantize_kv``) and written with its scales through the same
+flat entries; the kernels dequantize inside their KV stream.
+
 Every attention call goes through a kernel wrapper: causal windows to
 ``decode_attention_paged`` / ``decode_attention``, tree verify windows
 (``TreeAttnInfo``) to ``tree_attention_paged`` / ``tree_attention``. The
@@ -30,7 +36,9 @@ from typing import Optional
 
 import torch
 
-from ..kernels.decode_attention import decode_attention, decode_attention_paged
+from ..kernels.decode_attention import (as_bytes, decode_attention,
+                                        decode_attention_paged,
+                                        dequantize_kv)  # noqa: F401
 from ..kernels.flash_attention import flash_attention
 from ..kernels.pard_attention import PardMaskInfo, pard_mask  # noqa: F401
 from ..kernels.pard_attention import pard_attention
@@ -110,17 +118,70 @@ def write_cache(buf, new, write_index):
     (``paged_flat_index``) or a contiguous cache [B, max_len, ...]
     (``contiguous_flat_index``). Rows own disjoint entries, so only
     garbage-block entries can repeat (their content is never read)."""
-    flat = buf.view((-1,) + tuple(buf.shape[2:]))
-    flat.index_copy_(0, write_index,
-                     new.reshape((-1,) + tuple(new.shape[2:])).to(buf.dtype))
+    flat = as_bytes(buf).view((-1,) + tuple(buf.shape[2:]))
+    flat.index_copy_(0, write_index, as_bytes(
+        new.reshape((-1,) + tuple(new.shape[2:])).to(buf.dtype)))
+
+
+# the KV storage dtypes by EngineConfig / --kv-dtype name. int8 and fp8
+# store each [D] vector quantized against a per-(position, kv head) float32
+# scale in sibling "k_scale" / "v_scale" leaves
+KV_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32,
+             "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+# the largest magnitude of a quantized dtype: one scale unit maps amax on it
+_QUANT_MAXVAL = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
+
+
+def resolve_kv_dtype(kv_dtype) -> torch.dtype:
+    """A KV_DTYPES name or a torch dtype -> the storage dtype."""
+    if isinstance(kv_dtype, str):
+        return KV_DTYPES[kv_dtype]
+    return kv_dtype
+
+
+def kv_dtype_is_quantized(dtype) -> bool:
+    return resolve_kv_dtype(dtype) in _QUANT_MAXVAL
+
+
+def quantize_kv(x, qdtype):
+    """Symmetric quantization of x [..., D] per vector over the last axis:
+    (codes [..., D] in ``qdtype``, scales [...] float32) with
+    ``dequantize_kv(codes, scales) ~= x``. int8: scale amax / 127, round
+    half to even, clip; fp8 (e4m3): scale amax / 448, the cast rounds. An
+    all-zero vector takes scale 1 (the garbage block's zeros stay zero), so
+    no scale is 0. The fp8 values are clamped to +-448 before the cast: at
+    a subnormal amax (x = 1.1754944e-38) the scale loses bits and x / scale
+    passes 448, which the reference casts to NaN."""
+    qdtype = resolve_kv_dtype(qdtype)
+    maxval = _QUANT_MAXVAL[qdtype]
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / maxval, 1.0)
+    scaled = xf / scale[..., None]
+    if qdtype == torch.int8:
+        scaled = torch.round(scaled)
+    return scaled.clamp(-maxval, maxval).to(qdtype), scale
 
 
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cuda"):
-    """Zeroed contiguous KV rows ``{"k", "v"}`` of [batch, max_len, Hkv, D]."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {n: torch.zeros(shape, dtype=dtype, device=device)
-            for n in ("k", "v")}
+    """Zeroed contiguous KV rows ``{"k", "v"}`` of [batch, max_len, Hkv, D]
+    in ``dtype`` (a torch dtype or a KV_DTYPES name); a quantized dtype
+    adds ``k_scale`` / ``v_scale`` [batch, max_len, Hkv] float32 ones."""
+    return kv_leaves((batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim),
+                     dtype, device)
+
+
+def kv_leaves(shape, dtype, device):
+    """Zeroed ``{"k", "v"}`` of ``shape`` [.., .., Hkv, D] in ``dtype``,
+    plus scale leaves of ones [.., .., Hkv] when ``dtype`` is quantized."""
+    dtype = resolve_kv_dtype(dtype)
+    c = {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}
+    if kv_dtype_is_quantized(dtype):
+        for n in ("k_scale", "v_scale"):
+            c[n] = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+    return c
 
 
 def _qk_rmsnorm(x, scale, eps):
@@ -139,7 +200,8 @@ def gqa_apply(params, cfg, x, *, layer_window: int = 0, cache=None,
               mask_info: Optional[PardMaskInfo] = None):
     """Self attention of ``x`` [B, T, d]. Returns y [B, T, d].
 
-    With ``cache`` (``{"k", "v"}``, written in place) the window attends
+    With ``cache`` (``{"k", "v"}`` and, quantized, ``{"k_scale",
+    "v_scale"}``, written in place) the window attends
     to the layer's cache through ``batch``. Without it the whole sequence
     attends to itself at RoPE ``positions`` [B, T]: under the COD mask of
     ``mask_info`` (PARD training), else causally in token order (AR
@@ -175,7 +237,14 @@ def gqa_apply(params, cfg, x, *, layer_window: int = 0, cache=None,
 
 
 def _cached_attend(q, k, v, cache, batch: CacheBatch, **kw):
-    """Write the window's K/V into the cache in place, then attend to it."""
+    """Write the window's K/V into the cache in place (quantized at append
+    when the cache holds scales), then attend to it."""
+    if "k_scale" in cache:
+        k, ks = quantize_kv(k, cache["k"].dtype)
+        v, vs = quantize_kv(v, cache["v"].dtype)
+        write_cache(cache["k_scale"], ks, batch.write_index)
+        write_cache(cache["v_scale"], vs, batch.write_index)
+        kw.update(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
     write_cache(cache["k"], k, batch.write_index)
     write_cache(cache["v"], v, batch.write_index)
     tr = batch.tree

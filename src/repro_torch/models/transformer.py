@@ -191,8 +191,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed contiguous caches with the params tree's layout: ``prefix``
     holds one dict per prefix layer, ``scan`` one per period position with
     a leading repeats axis. Attention layers hold ``{"k", "v"}`` [batch,
-    max_len, Hkv, D] in ``dtype``; Mamba2 layers ``{"conv", "ssm"}`` in
-    float32 (``init_mamba2_state``)."""
+    max_len, Hkv, D] in ``dtype`` (a torch dtype or a kv-dtype name:
+    "bf16", "fp32", "int8", "fp8"; int8 and fp8 add ``{"k_scale",
+    "v_scale"}`` [batch, max_len, Hkv] float32 ones); Mamba2 layers
+    ``{"conv", "ssm"}`` in float32 (``init_mamba2_state``) whatever the
+    kv dtype, as in the JAX package."""
     check_supported(cfg)
 
     def make(spec):

@@ -2,8 +2,7 @@
 ``repro.serving.config``) with the JAX package's defaults.
 
 Settings outside the port's slices so far raise ``NotImplementedError``:
-mode ``vsd``, quantized KV, the prefix cache, ``tp``/``dp`` > 1 and
-temperature > 0.
+mode ``vsd``, the prefix cache, ``tp``/``dp`` > 1 and temperature > 0.
 """
 from __future__ import annotations
 
@@ -11,7 +10,7 @@ import dataclasses
 from typing import Any, Optional
 
 from ..core.spec_decode import TemplateBank, TreeTemplate, as_bank
-from .kv_pool import KV_DTYPES
+from ..models.attention import KV_DTYPES
 
 
 def _later(what: str):
@@ -71,7 +70,7 @@ class EngineConfig:
         if self.kv_layout not in ("paged", "contiguous"):
             raise ValueError(f"kv_layout must be paged or contiguous, "
                              f"got {self.kv_layout!r}")
-        if self.kv_dtype not in ("bf16", "fp32", "int8", "fp8"):
+        if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
         if self.tree is not None and self.mode != "pard":
             raise ValueError("tree templates apply to the PARD draft path only")
@@ -98,8 +97,6 @@ class EngineConfig:
                              f"got {self.tree_ewma}")
         if self.mode == "vsd":
             _later("VSD")
-        if self.kv_dtype not in KV_DTYPES:
-            _later("quantized KV")
         if self.prefix_cache:
             _later("the prefix cache")
         if self.tp > 1 or self.dp > 1:

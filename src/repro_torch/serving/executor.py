@@ -90,19 +90,20 @@ class Executor:
         # draft forwards per step: one PARD window (flat or tree), none for AR
         self._n_draft = 0 if mode == "ar" else 1
 
-        dtype = kv_pool.KV_DTYPES[kv_dtype]
+        # caches in the kv_dtype by name: int8 / fp8 add their scale leaves
         cfgs = self.cfgs
         if paged:
             caches = [kv_pool.init_paged_caches(c, max_batch, num_blocks,
-                                                kv_block_size, dtype, device)
+                                                kv_block_size, kv_dtype, device)
                       for c in cfgs]
             self.kv_per_block = sum(kv_pool.kv_bytes_per_block(c, num_blocks)
                                     for c in caches)
         else:
-            caches = [init_caches(c, max_batch, max_len, dtype, device)
+            caches = [init_caches(c, max_batch, max_len, kv_dtype, device)
                       for c in cfgs]
             self.kv_per_block = 0
         self.kv_capacity = sum(kv_pool.kv_capacity_bytes(c) for c in caches)
+        self.kv_scale_bytes = sum(kv_pool.kv_scale_bytes(c) for c in caches)
 
         def zeros(*shape, dt=torch.int64):
             return torch.zeros(shape, dtype=dt, device=device)

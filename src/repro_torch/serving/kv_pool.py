@@ -4,10 +4,12 @@ the contiguous layout's capacity accounting.
 Port of ``repro.serving.kv_pool`` without the prefix cache. In the paged
 layout attention KV lives in shared pools of fixed-size blocks
 ``[num_blocks, block_size, Hkv, D]`` per layer (stacked layers carry a
-leading repeats axis); each slot owns a block-table row mapping absolute
-position ``p`` to ``(table[p // block_size], p % block_size)``. Mamba2
-layers keep their float32 conv and SSM states per batch row in either
-layout. The contiguous layout (``models.init_caches``) holds one
+leading repeats axis), in bf16, fp32, int8 or fp8 (e4m3); the 8-bit pools
+carry float32 scale pools ``[num_blocks, block_size, Hkv]`` beside them,
+which the byte accounting counts. Each slot owns a block-table row mapping
+absolute position ``p`` to ``(table[p // block_size], p % block_size)``.
+Mamba2 layers keep their float32 conv and SSM states per batch row in
+either layout. The contiguous layout (``models.init_caches``) holds one
 full-length row per slot, committed up front; it needs no allocator.
 
 Invariants (as in the JAX package):
@@ -28,11 +30,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..models.attention import kv_leaves
 from ..models.config import SSM, ModelConfig, scan_plan
 from ..models.ssm import init_mamba2_state
 from ..models.transformer import check_supported, stack_layer_caches
 
-KV_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
 def blocks_for(n_tokens: int, block_size: int) -> int:
@@ -50,29 +53,37 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
     """Zeroed caches with the params tree's layout: ``prefix`` holds one
     dict per prefix layer, ``scan`` one per period position with a leading
     repeats axis. Attention layers hold ``{"k", "v"}`` pools ``[NB, bs,
-    Hkv, D]`` in ``dtype``; Mamba2 layers keep ``{"conv", "ssm"}`` states
-    of ``batch`` rows in float32."""
+    Hkv, D]`` in ``dtype`` (a torch dtype or a kv-dtype name); int8 and
+    fp8 add ``{"k_scale", "v_scale"}`` ``[NB, bs, Hkv]`` float32 ones, so
+    the garbage block holds codes of 0 and scales of 1. Mamba2 layers keep
+    ``{"conv", "ssm"}`` states of ``batch`` rows in float32."""
     check_supported(cfg)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
 
     def make(spec):
         if spec.mixer == SSM:
             return init_mamba2_state(cfg, batch, device)
-        return {n: torch.zeros(shape, dtype=dtype, device=device)
-                for n in ("k", "v")}
+        return kv_leaves(shape, dtype, device)
 
     return stack_layer_caches(scan_plan(cfg), make)
 
 
-def _attn_leaves(tree) -> List[torch.Tensor]:
+def _attn_leaves(tree, names=KV_LEAVES) -> List[torch.Tensor]:
     return [t for entry in tree["prefix"] + tree["scan"]
-            for name, t in entry.items() if name in ("k", "v")]
+            for name, t in entry.items() if name in names]
 
 
 def kv_capacity_bytes(tree) -> int:
     """Device bytes held by the attention KV (paged pools or contiguous
-    rows); Mamba2 states are not KV and are not counted."""
+    rows) and its scales, as the JAX package counts them; Mamba2 states
+    are not KV and are not counted."""
     return sum(t.numel() * t.element_size() for t in _attn_leaves(tree))
+
+
+def kv_scale_bytes(tree) -> int:
+    """The part of ``kv_capacity_bytes`` held by quantization scales."""
+    return sum(t.numel() * t.element_size()
+               for t in _attn_leaves(tree, ("k_scale", "v_scale")))
 
 
 def kv_bytes_per_block(tree, num_blocks: int) -> int:

@@ -144,12 +144,6 @@ def test_cpu_call_counts_no_launch():
     assert kernels.launches["decode_attention_paged"] == 0
 
 
-def test_quantized_scales_not_ported_yet():
-    t = _args(_setup(7, 1, 1, 2, 2, 32, 8, 2), "torch")
-    with pytest.raises(NotImplementedError):
-        da.decode_attention_paged(*t, k_scale=t[4], v_scale=t[4])
-
-
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     """Without a CUDA toolkit the build raises; it never falls back."""
     from repro_torch.kernels import build

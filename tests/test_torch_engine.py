@@ -128,13 +128,31 @@ def test_engine_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="vsd"), dict(kv_layout="contiguous", kv_dtype="int8"),
-    dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
-    dict(tree=(2, 2), temperature=0.7), dict(prefix_cache=True),
-    dict(tp=2), dict(dp=2), dict(temperature=0.7)])
+    dict(mode="vsd"), dict(tree=(2, 2), temperature=0.7),
+    dict(prefix_cache=True), dict(tp=2), dict(dp=2), dict(temperature=0.7)])
 def test_engine_config_outside_the_slice_raises(kw):
     with pytest.raises(NotImplementedError):
         EngineConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_layout="contiguous", kv_dtype="int8"), dict(kv_dtype="int8"),
+    dict(kv_dtype="fp8", tree=(2, 1))])
+def test_quantized_kv_configs_serve(jax_models, kw):
+    """int8 / fp8 KV construct and serve: every request completes with
+    tokens inside the vocab, and the caches hold 8-bit codes beside f32
+    scales."""
+    models = _port_models(jax_models, torch.float32)
+    prompts = _prompts(9, 3)
+    eng, toks = _serve(models, prompts, max_new=6, **dict(SMALL, **kw))
+    leaf = eng.ex.state.tcache["scan"][0]
+    assert leaf["k"].dtype == (torch.int8 if kw["kv_dtype"] == "int8"
+                               else torch.float8_e4m3fn)
+    assert leaf["k_scale"].dtype == torch.float32
+    assert leaf["k_scale"].shape == leaf["k"].shape[:-1]
+    for i, p in enumerate(prompts):
+        assert len(toks[i]) == len(p) + 6
+        assert 0 <= toks[i].min() and toks[i].max() < 512
 
 
 def test_engine_config_validates():

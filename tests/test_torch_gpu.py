@@ -16,6 +16,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ssd
 from repro_torch.kernels import tree_attention as ta
 from repro_torch.models import forward, init_params
+from repro_torch.models.attention import quantize_kv
 from repro_torch.serving import kv_pool
 from repro_torch.serving.engine import Engine, EngineConfig
 
@@ -99,9 +100,14 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                 # non-contiguous q
         da.decode_attention_paged(**dict(case, q=case["q"].transpose(1, 2)
                                          .contiguous().transpose(1, 2)))
-    with pytest.raises(NotImplementedError):        # quantized pools
-        da.decode_attention_paged(**case, k_scale=case["kv_len"],
-                                  v_scale=case["kv_len"])
+    q8 = _quantized(case, torch.int8)
+    with pytest.raises(ValueError):                 # int8 pools, no scales
+        da.decode_attention_paged(**dict(q8, k_scale=None, v_scale=None))
+    with pytest.raises(TypeError):                  # bf16 scales
+        da.decode_attention_paged(**dict(q8, k_scale=q8["k_scale"].bfloat16()))
+    with pytest.raises(ValueError):                 # scales of fp32 pools
+        da.decode_attention_paged(**case, k_scale=q8["k_scale"],
+                                  v_scale=q8["v_scale"])
 
 
 def _tree_to(tree, dev):
@@ -296,9 +302,11 @@ def test_tree_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):                 # cache batch != q batch
         da.decode_attention(cont["q"], cont["k"][:1], cont["v"][:1],
                             cont["kv_len"], cont["q_pos"])
-    with pytest.raises(NotImplementedError):        # quantized caches
-        ta.tree_attention(**cont, k_scale=cont["kv_len"],
-                          v_scale=cont["kv_len"])
+    q8 = _quantized(cont, torch.float8_e4m3fn)
+    with pytest.raises(ValueError):                 # scales of another shape
+        ta.tree_attention(**dict(q8, k_scale=q8["k_scale"][:, :-1]))
+    with pytest.raises(ValueError):                 # fp8 caches, no scales
+        ta.tree_attention(**dict(q8, v_scale=None))
 
 
 # bf16 q and KV take the tensor-core split-KV loop
@@ -519,6 +527,140 @@ def test_tree_and_contiguous_engines_on_card(cuda):
     assert out["chain"][1] == out["flat"][1]
     assert out["flat-contig"][1] == out["flat"][1]
     assert out["tree-contig"][1] == out["tree"][1]
+
+
+# ---------------------------------------------------------------------------
+# quantized KV: int8 / fp8 codes with f32 scales in all four serving kernels
+# ---------------------------------------------------------------------------
+
+QUANT = [torch.int8, torch.float8_e4m3fn]
+
+
+def _quantized(case, qdtype):
+    """A kernel case with its K/V quantized (``quantize_kv``, as the model
+    appends them): codes in ``qdtype`` and f32 k_scale / v_scale. Poisoned
+    slots become codes +-max at scale 1e4 / max: finite, never seen."""
+    out = dict(case)
+    for name in ("k", "v", "k_pages", "v_pages"):
+        if name in case:
+            codes, scale = quantize_kv(case[name], qdtype)
+            out[name] = codes
+            out[name[0] + "_scale"] = scale
+    return out
+
+
+def _quant_cases(dev, qdtype, q_dtype, tq, hq, hkv, d, bs, kv_len, seed):
+    """(kernel, plain, case) of all four serving kernels: the causal pair on
+    ``_case``'s pools and their gathered rows, the tree pair on
+    ``_tree_case`` at the same widths."""
+    paged = _quantized(_case(dev, 4, tq, hq, hkv, d, bs, kv_len,
+                             torch.float32, q_dtype, seed=seed), qdtype)
+    tp, tc = (_quantized(c, qdtype) for c in _tree_case(
+        dev, 4, min(tq + 14, 32), hq, hkv, d, bs, torch.float32, q_dtype,
+        seed=seed))
+    contig = dict(_contiguous(paged), k_scale=da.gather_pages(
+        paged["k_scale"], paged["block_tables"]), v_scale=da.gather_pages(
+        paged["v_scale"], paged["block_tables"]))
+    return [(da.decode_attention_paged, da.decode_attention_paged_ref, paged),
+            (da.decode_attention, da.decode_attention_ref, contig),
+            (ta.tree_attention_paged, ta.tree_attention_paged_ref, tp),
+            (ta.tree_attention, ta.tree_attention_ref, tc)]
+
+
+@pytest.mark.parametrize("tq,hq,hkv,d,bs,kv_len", [
+    (9, 32, 8, 128, 64, [1, 70, 500, 1024]),       # target verify window
+    (16, 32, 8, 64, 64, [16, 200, 640, 1000]),     # draft window
+    (16, 56, 8, 128, 16, [16, 300, 1000, 2500]),   # G 7, pages of 16
+    (9, 4, 2, 48, 16, [1, 29, 70, 130]),           # D 48, G 2
+    (5, 4, 2, 32, 8, [6, 20, 13, 31]),             # D 32, pages of 8
+])
+@pytest.mark.parametrize("qdtype", QUANT)
+@pytest.mark.parametrize("q_dtype,tol", [(torch.bfloat16, 2e-2),
+                                         (torch.float32, 1e-4)])
+def test_quantized_kernels_match_plain(cuda, tq, hq, hkv, d, bs, kv_len,
+                                       qdtype, q_dtype, tol):
+    """bf16 q takes the tensor-core loop's 8-bit route, f32 q the f32
+    loop's dequantizing route; both against the plain version on the
+    f32-dequantized K/V."""
+    for fn, ref, case in _quant_cases(cuda, qdtype, q_dtype, tq, hq, hkv, d,
+                                      bs, kv_len, seed=tq + d):
+        name = fn.__name__
+        before = kernels.launches[name]
+        for kw in ({}, dict(window=40, softcap=20.0)):
+            out = fn(**case, **kw)
+            torch.cuda.synchronize()
+            want = ref(**case, **kw)
+            assert out.dtype == q_dtype and torch.isfinite(out).all(), name
+            torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                       rtol=tol, msg=name)
+        assert kernels.launches[name] == before + 2
+
+
+@pytest.mark.parametrize("qdtype", QUANT)
+def test_quantized_edges(cuda, qdtype):
+    """Rows that see no key give 0; contiguous kv_len past S; the garbage
+    block's codes of 0 and scales of 1 stay invisible."""
+    case = _quantized(_case(cuda, 4, 9, 32, 8, 128, 64, [4096, 70, 1, 0],
+                            torch.float32, BF), qdtype)
+    da.as_bytes(case["k_pages"])[0] = 0             # codes of 0 (int8, e4m3)
+    da.as_bytes(case["v_pages"])[0] = 0
+    case["k_scale"][0] = 1.0
+    case["v_scale"][0] = 1.0
+    out = da.decode_attention_paged(**case)
+    torch.testing.assert_close(out.float(), da.decode_attention_paged_ref(
+        **case).float(), atol=2e-2, rtol=2e-2)
+    assert not out[3].any()
+    _, cont = _tree_case(cuda, 4, 31, 32, 8, 128, 64, torch.float32, BF,
+                         seed=7)
+    cont = _quantized(cont, qdtype)
+    s = int(cont["win_start"][0] + cont["win_len"][0])
+    for n in ("k", "v"):
+        cont[n] = cont[n][:, :s].contiguous()
+        cont[n + "_scale"] = cont[n + "_scale"][:, :s].contiguous()
+    _dead_row(cont)
+    out = ta.tree_attention(**cont)
+    torch.testing.assert_close(out.float(), ta.tree_attention_ref(
+        **cont).float(), atol=2e-2, rtol=2e-2)
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize("qdtype", QUANT)
+def test_quantized_bitwise_and_graph_replay(cuda, qdtype):
+    """Each kernel's 8-bit route: two calls bitwise equal, and a CUDA graph
+    replayed after kv_len / q_pos are rewritten matches the plain
+    version."""
+    cases = _quant_cases(cuda, qdtype, BF, 9, 32, 8, 128, 64,
+                         [300, 1000, 2049, 4000], seed=11)
+    for fn, ref, case in cases:
+        _bitwise_and_graph_replay(fn, ref, case, {}, "anc" in case)
+
+
+def test_quantized_engines_on_card(cuda):
+    """Tiny fp32 engines with int8 and fp8 pools on the card: PARD, a tree
+    and contiguous rows all give the AR tokens of their kv dtype, through
+    the kernels (one launch per attention layer per step)."""
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    tp = init_params(tc, 0, cuda, torch.float32)
+    dp = init_params(dc, 1, cuda, torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, size=int(n))
+               for n in rng.integers(4, 30, size=4)]
+    for kv_dtype in ("int8", "fp8"):
+        base = dict(max_batch=2, max_len=256, kv_block_size=16,
+                    kv_dtype=kv_dtype)
+        out = {}
+        for name, kw in {"ar": dict(mode="ar", k=4), "flat": dict(k=4),
+                         "tree-contig": dict(tree=(2, 2, 1),
+                                             kv_layout="contiguous")}.items():
+            eng = Engine(tp, tc, dp, dc, config=EngineConfig(**base, **kw))
+            rids = {eng.submit(p, 16): i for i, p in enumerate(prompts)}
+            kernels.launches.clear()
+            comps = eng.run()
+            assert sum(kernels.launches.values()) > 0
+            out[name] = {rids[c.rid]: c.tokens for c in comps}
+        for name in out:
+            for i in range(len(prompts)):
+                np.testing.assert_array_equal(out[name][i], out["ar"][i])
 
 
 # ---------------------------------------------------------------------------

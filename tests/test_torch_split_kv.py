@@ -18,7 +18,11 @@ the JAX package's oracles ``repro.kernels.ref.decode_attention_paged_ref``
 contiguous cache [B, S, Hkv, D] is the pool of B blocks of S positions
 with the block tables ``arange(B)[:, None]``, which is how the emulation
 reads it: the kernel's contiguous addressing differs from the paged one
-only in where a key's bytes lie.
+only in where a key's bytes lie. The loop's 8-bit route (int8 / fp8 K/V
+codes with f32 scales, ``emulate(..., k_scale=, v_scale=)``) runs the
+same cases on K/V quantized as the model appends them, against the plain
+versions and the JAX oracles given the same scales; its P times v_scale
+enters P V as a bf16 pair hi + lo, so it stays within 2^-16 max|v|.
 
 Tolerances: with P kept in f32 the emulation differs from the plain
 versions only in summation order (atol = rtol = 1e-5). Rounding P to
@@ -39,6 +43,7 @@ from repro.kernels import ref
 from repro_torch.core.spec_decode import TreeTemplate
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import tree_attention as ta
+from repro_torch.models.attention import quantize_kv
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SMS = 132                                   # an H100's SMs
@@ -112,13 +117,20 @@ def _bf16(x):
 
 
 def emulate(q, k_pages, v_pages, tables, kv_len, q_pos, *, tree=None,
-            window=0, softcap=0.0, scale=None, round_p=True):
+            window=0, softcap=0.0, scale=None, round_p=True, k_scale=None,
+            v_scale=None):
     """The bf16 loop's arithmetic in f32: the plan's tiles and key split,
     per-split online softmax over 64-key chunks (log2 units; P rounded to
     bf16 for P V when ``round_p``; l sums the f32 P), the merge in split
     order. ``tree`` = (win_start, win_len, anc) selects the tree mask.
     The plan's reach is MBS * block: S for a contiguous cache passed as B
-    blocks of S. Returns f32 [B, Tq, Hq, D]; rows that see no key are 0."""
+    blocks of S. With ``k_scale`` / ``v_scale`` (pools of int8 / fp8
+    codes), the 8-bit route: the codes enter the products as they are
+    (bf16 holds them exactly), k_scale multiplies each score column before
+    the scale, and v_scale multiplies P, which enters P V as a bf16 pair
+    hi + lo (``round_p``), while l sums the unscaled P; a key past the
+    range has code 0 and scale 0.
+    Returns f32 [B, Tq, Hq, D]; rows that see no key are 0."""
     b, tq, hq, d = q.shape
     hkv = k_pages.shape[2]
     g = hq // hkv
@@ -129,6 +141,10 @@ def emulate(q, k_pages, v_pages, tables, kv_len, q_pos, *, tree=None,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     k = da.gather_pages(k_pages, tables).float()            # [B, S, Hkv, D]
     v = da.gather_pages(v_pages, tables).float()
+    quant = k_scale is not None
+    if quant:                                               # [B, S, Hkv]
+        ks = da.gather_pages(k_scale, tables)
+        vs = da.gather_pages(v_scale, tables)
     reach = k.shape[1]
     # row r = i * G + gg of kv head h is query head h * G + gg of query i
     qr = q.float().reshape(b, tq, hkv, g, d).permute(0, 2, 1, 3, 4) \
@@ -165,7 +181,14 @@ def emulate(q, k_pages, v_pages, tables, kv_len, q_pos, *, tree=None,
                     kc = torch.zeros(KEYS, hkv, d)
                     vc = torch.zeros(KEYS, hkv, d)
                     kc[inside], vc[inside] = k[bi, p[inside]], v[bi, p[inside]]
-                    s = torch.einsum("hrd,khd->hrk", qr[bi][:, rr], kc) * scale
+                    s = torch.einsum("hrd,khd->hrk", qr[bi][:, rr], kc)
+                    if quant:
+                        ksc = torch.zeros(KEYS, hkv)
+                        vsc = torch.zeros(KEYS, hkv)
+                        ksc[inside] = ks[bi, p[inside]]
+                        vsc[inside] = vs[bi, p[inside]]
+                        s = s * ksc.T[:, None]
+                    s = s * scale
                     if softcap:
                         s = torch.tanh(s / softcap) * softcap
                     s = s * LOG2E
@@ -181,7 +204,12 @@ def emulate(q, k_pages, v_pages, tables, kv_len, q_pos, *, tree=None,
                     alpha = torch.exp2(m - base)
                     pr = torch.exp2(s - base[..., None])
                     l = l * alpha + pr.sum(-1)
-                    pv = _bf16(pr) if round_p else pr
+                    if quant:                   # P v_scale as hi + lo
+                        pv = pr * vsc.T[:, None]
+                        pv = _bf16(pv) + _bf16(pv - _bf16(pv)) if round_p \
+                            else pv
+                    else:
+                        pv = _bf16(pr) if round_p else pr
                     o = o * alpha[..., None] + torch.einsum("hrk,khd->hrd",
                                                             pv, vc)
                     m = mx
@@ -271,11 +299,31 @@ def _contig_case(seed, b, tq, hq, hkv, d, s, ctx, tree=False, dead=()):
     return case
 
 
+def _quantized(case, name):
+    """``case`` with its K/V as int8 / fp8 codes and f32 k_scale / v_scale,
+    quantized as the model appends them."""
+    case = dict(case)
+    for n in ("k", "v", "k_pages", "v_pages"):
+        if n in case:
+            case[n], case[n[0] + "_scale"] = quantize_kv(case[n], name)
+    return case
+
+
+def _jnp(t):
+    """A torch tensor as a jnp array (fp8 through its bytes)."""
+    if t.dtype == torch.float8_e4m3fn:
+        return jnp.asarray(da.as_bytes(t).numpy()).view(jnp.float8_e4m3fn)
+    return jnp.asarray(t.numpy())
+
+
 def _run(case, **kw):
     """(emulation with f32 P, with bf16 P, the port's plain version, the
     JAX oracle) as numpy; plus the rows that see some key. A contiguous
-    case (``k``, ``v``) is emulated as B blocks of S."""
+    case (``k``, ``v``) is emulated as B blocks of S. Scales of a
+    quantized case go to all four."""
     q, kv_len, q_pos = case["q"], case["kv_len"], case["q_pos"]
+    sc = {n: case[n] for n in ("k_scale", "v_scale") if n in case}
+    jsc = {n: _jnp(t) for n, t in sc.items()}
     if "k" in case:
         keys = case["k"]
         args = [q, case["k"], case["v"], kv_len, q_pos]
@@ -289,15 +337,15 @@ def _run(case, **kw):
                       case["block_tables"], kv_len, q_pos]
         flat = (da.decode_attention_paged_ref, ref.decode_attention_paged_ref)
         tree_fns = (ta.tree_attention_paged_ref, ref.tree_attention_paged_ref)
-    jargs = [jnp.asarray(a.numpy()) for a in args]
+    jargs = [_jnp(a) for a in args]
     if "anc" in case:
         tree = (case["win_start"], case["win_len"], case["anc"])
         plain = tree_fns[0](*args, case["win_start"], case["anc"],
-                            win_len=case["win_len"], **kw)
+                            win_len=case["win_len"], **sc, **kw)
         jax = tree_fns[1](
             *jargs, jnp.asarray(case["win_start"].numpy()),
             jnp.asarray(case["anc"].numpy().astype(np.uint32)),
-            win_len=jnp.asarray(case["win_len"].numpy()), **kw)
+            win_len=jnp.asarray(case["win_len"].numpy()), **jsc, **kw)
         pos = torch.arange(keys.shape[1])[None].expand(keys.shape[0], -1)
         eff = torch.minimum(kv_len.long(), case["win_start"].long()
                             + case["win_len"].long())
@@ -306,12 +354,12 @@ def _run(case, **kw):
             kw.get("window", 0)) & (pos < eff[:, None])[:, None]).any(-1)
     else:
         tree = None
-        plain = flat[0](*args, **kw)
-        jax = flat[1](*jargs, **kw)
+        plain = flat[0](*args, **sc, **kw)
+        jax = flat[1](*jargs, **jsc, **kw)
         seen = da.causal_allowed(q_pos, kv_len, keys.shape[1],
                                  kw.get("window", 0)).any(-1)
-    exact = emulate(*emu, tree=tree, round_p=False, **kw)
-    rounded = emulate(*emu, tree=tree, round_p=True, **kw)
+    exact = emulate(*emu, tree=tree, round_p=False, **sc, **kw)
+    rounded = emulate(*emu, tree=tree, round_p=True, **sc, **kw)
     return (exact.numpy(), rounded.numpy(), plain.numpy(), np.asarray(jax),
             seen.numpy())
 
@@ -320,9 +368,14 @@ def _check_against_plain_and_jax(name, case, kw):
     exact, rounded, plain, jax, seen = _run(case, **kw)
     # the split and merge are exact up to f32 summation order
     np.testing.assert_allclose(exact, plain, **TOL)
-    # bf16 P: within 2^-9 max|v| of the plain version
+    # bf16 P: within 2^-9 max|v| of the plain version; the 8-bit route's
+    # P v_scale as hi + lo: within 2^-16 max|v| (v dequantized)
     v = case["v"] if "v" in case else case["v_pages"]
-    bound = 2.0 ** -9 * float(v.abs().max()) + 1e-5
+    bits = 9
+    if "v_scale" in case:
+        v = da.dequantize_kv(v, case["v_scale"])
+        bits = 16
+    bound = 2.0 ** -bits * float(v.abs().max()) + 1e-5
     assert np.abs(rounded - plain).max() <= bound, name
     # JAX's oracle on the rows that see a key; the others are 0 here
     np.testing.assert_allclose(exact[seen], jax[seen], **TOL)
@@ -395,6 +448,112 @@ def test_full_width_bf16_p_error():
     assert err <= 2e-2, err
 
 
+# --------------------------------------- the 8-bit route (int8 / fp8 K/V)
+QUANT = ["int8", "fp8"]
+
+
+def test_widening_codes_to_bf16_is_exact():
+    """Every int8 code and every e4m3 value (NaN aside) is a bf16 value, so
+    the 8-bit route's products see the codes unrounded."""
+    i8 = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    assert torch.equal(_bf16(i8.float()), i8.float())
+    e4 = torch.arange(256, dtype=torch.int16).to(torch.uint8).view(
+        torch.float8_e4m3fn).float()
+    e4 = e4[torch.isfinite(e4)]
+    assert e4.numel() == 254
+    assert torch.equal(_bf16(e4), e4)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 numpy arrays: byte n of the result is
+    byte (sel >> 4 n) & 7 of the 8 bytes y:x (x's low byte is byte 0)."""
+    src = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros_like(x, dtype=np.uint32)
+    for n in range(4):
+        k = (sel >> (4 * n)) & 7
+        byte = (src >> np.uint64(8 * k)) & np.uint64(0xFF)
+        out |= (byte.astype(np.uint32) << np.uint32(8 * n))
+    return out
+
+
+def widen16(words, code):
+    """serve_attention_mma.cuh's ``widen16`` on uint32 words of 4 codes
+    each (code 2: int8, 3: e4m3), bit for bit in numpy: the bf16 pairs
+    [n, 2] as uint32 words."""
+    words = np.asarray(words, np.uint32)
+    out = []
+    if code == 2:
+        u = words ^ np.uint32(0x80808080)
+        f = [(_byte_perm(u, np.full_like(u, 0x4B000000), 0x7540 | k)
+              .view(np.float32) - np.float32(8388736.0)).view(np.uint32)
+             for k in range(4)]
+        out = [_byte_perm(f[0], f[1], 0x7632), _byte_perm(f[2], f[3], 0x7632)]
+    else:
+        for sel in (0x1404, 0x3424):
+            t = _byte_perm(words, np.zeros_like(words), sel)
+            b = (t & np.uint32(0x80008000)) | \
+                ((t & np.uint32(0x7F007F00)) >> np.uint32(4))
+            two120 = np.float32(2.0 ** 120)
+            lo = (b << np.uint32(16)).view(np.float32) * two120
+            hi = (b & np.uint32(0xFFFF0000)).view(np.float32) * two120
+            out.append(_byte_perm(lo.view(np.uint32), hi.view(np.uint32),
+                                  0x7632))
+    return np.stack(out, -1)
+
+
+@pytest.mark.parametrize("code,dtype", [(2, torch.int8),
+                                        (3, torch.float8_e4m3fn)])
+def test_kernel_widening_is_exact_bit_for_bit(code, dtype):
+    """The kernel widens codes to bf16 with integer and f32 ALU steps, not
+    conversions: for every int8 code and every e4m3 value (NaN aside)
+    those steps give the code's value, bit for bit."""
+    codes = torch.arange(256, dtype=torch.int16).to(torch.uint8)
+    words = codes.numpy().view(np.uint32)                  # 4 codes a word
+    pairs = widen16(words, code).reshape(-1)               # 2 bf16 a word
+    got = torch.from_numpy(pairs.view(np.int16).copy()).view(torch.bfloat16)
+    want = codes.view(dtype).float()
+    finite = torch.isfinite(want)
+    assert int(finite.sum()) == (256 if code == 2 else 254)
+    assert torch.equal(got.float()[finite], want[finite])
+
+
+@pytest.mark.parametrize("qname", QUANT)
+@pytest.mark.parametrize("name", list(CASES))
+def test_quantized_emulation_matches_plain_and_jax(name, qname):
+    """The 8-bit route on every paged case: exact up to summation order
+    with f32 P, within 2^-16 max|v| with P times v_scale as hi + lo."""
+    spec = dict(CASES[name])
+    kw = spec.pop("kw", {})
+    case = _quantized(_paged_case(len(name), **spec), qname)
+    _check_against_plain_and_jax(name, case, kw)
+
+
+@pytest.mark.parametrize("qname", QUANT)
+def test_quantized_full_width_error(qname):
+    """G 4, D 128, kv 4096, and a row of kv_len 1 whose one key has |v|
+    near 5, with int8 / fp8 pools: the emulated 8-bit route with a bf16
+    output stays within the bf16 tolerance 2e-2 (phase 2 of
+    chip_smoke.py) of the plain version on the f32-dequantized K/V, its
+    output rounding aside at most 2^-16 max|v| from it. P v_scale rounded
+    to one bf16 would move the one-key row by up to 2^-8 of |v|."""
+    case = _quantized(_paged_case(7, b=2, tq=9, hq=32, hkv=8, d=128, bs=64,
+                                  ctx=[4096, 1]), qname)
+    one = case["block_tables"][1, 0]
+    case["v_scale"][one, 0] *= 5.0 / float(
+        (case["v_pages"][one, 0].float() * case["v_scale"][one, 0, :, None]
+         ).abs().max())
+    args = [case[n] for n in ("q", "k_pages", "v_pages", "block_tables",
+                              "kv_len", "q_pos")]
+    sc = dict(k_scale=case["k_scale"], v_scale=case["v_scale"])
+    out = emulate(*args, round_p=True, **sc)
+    plain = da.decode_attention_paged_ref(*args, **sc)
+    vmax = float(da.dequantize_kv(case["v_pages"],
+                                  case["v_scale"]).abs().max())
+    assert (out - plain).abs().max().item() <= 2.0 ** -16 * vmax + 1e-5
+    err = (_bf16(out) - plain).abs().max().item()
+    assert err <= 2e-2, err
+
+
 # ------------------------------------------------------ contiguous caches
 CONTIG_CASES = {
     # B 4 x Hkv 2 over S 320: clusters of 5; the 70-key row leaves 3
@@ -439,6 +598,16 @@ def test_contiguous_emulation_matches_plain_and_jax(name):
         assert int(case["kv_len"].max()) > s and int(case["q_pos"].max()) >= s
     if name == "tree window ends at S":
         assert int(case["win_start"][0] + case["win_len"][0]) == s
+    _check_against_plain_and_jax(name, case, kw)
+
+
+@pytest.mark.parametrize("qname", QUANT)
+@pytest.mark.parametrize("name", ["kv_len > S", "tree window ends at S",
+                                  "tree, a row that sees no key, short rows"])
+def test_quantized_contiguous_emulation(name, qname):
+    spec = dict(CONTIG_CASES[name])
+    kw = spec.pop("kw", {})
+    case = _quantized(_contig_case(len(name), **spec), qname)
     _check_against_plain_and_jax(name, case, kw)
 
 

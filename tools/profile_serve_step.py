@@ -3,6 +3,7 @@
 
   PYTHONPATH=src python3 tools/profile_serve_step.py [--target mamba2-130m]
       [--draft mamba2-130m] [--mode pard|ar] [--layout paged|contiguous]
+      [--kv-dtype bf16|fp32|int8|fp8]
 
 Builds an ``Engine`` (EngineConfig defaults: K = 8, max_batch 4) on random
 bf16 weights (target from seed 0, draft from seed 1), submits four
@@ -37,6 +38,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", choices=["pard", "ar"], default="pard")
     ap.add_argument("--layout", choices=["paged", "contiguous"],
                     default="paged")
+    ap.add_argument("--kv-dtype", choices=["bf16", "fp32", "int8", "fp8"],
+                    default="bf16")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -57,7 +60,8 @@ def main(argv=None) -> int:
         dc = get_config(args.draft)
         dp = init_params(dc, 1, "cuda", torch.bfloat16)
     eng = Engine(tp, tc, dp, dc, device="cuda",
-                 config=EngineConfig(mode=args.mode, kv_layout=args.layout))
+                 config=EngineConfig(mode=args.mode, kv_layout=args.layout,
+                                     kv_dtype=args.kv_dtype))
     rng = np.random.default_rng(0)
     for _ in range(REQUESTS):
         eng.submit(rng.integers(0, tc.vocab_size, size=256), 128)
@@ -113,7 +117,7 @@ def main(argv=None) -> int:
                    ) / PROFILED
     label = (f"{args.target}" + (f" + {args.draft}" if dp else "")
              + f" {args.mode.upper()} {args.layout} B={REQUESTS} "
-             f"bf16, {card}")
+             f"bf16, kv {args.kv_dtype}, {card}")
     print(f"{label}: step ms (CUDA events, 10 steps) "
           f"{[round(t, 2) for t in times]}; {PROFILED} profiled steps "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms; per step "

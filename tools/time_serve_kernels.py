@@ -8,8 +8,10 @@ Builds ``decode_attention_paged``, ``decode_attention``,
 ``tree_attention_paged``, ``tree_attention`` and ``ssd_chunked`` from the
 ``repro_torch`` package under ``--src`` (default: this checkout's
 ``src``) and runs ``chip_smoke.py``'s timing phases on them: at the
-full-width engine's shapes and at kv 1k-4k, each attention kernel and
-SDPA with its boolean mask, and ssd_chunked at mamba2-130m's shapes (b 4,
+full-width engine's shapes and at kv 1k-4k, each attention kernel (bf16
+K/V, and its int8 and fp8 routes, which a tree older than the 8-bit
+routes lacks) and SDPA with its boolean mask, and ssd_chunked at
+mamba2-130m's shapes (b 4,
 bf16; t = 9, 16 and 2048), by device time (one CUDA graph holding one
 call per rotating input set, replayed between CUDA events) and by eager
 calls, beside the plain version and the bound. ``--src`` may name the ``src`` of another tree
