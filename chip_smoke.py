@@ -34,7 +34,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      loop, f32 q on the f32 loop) at D 128 / 64 / 48 / 32, G 4 and 7, pages
      of 64 / 16 / 8, window + softcap, the 31-slot window, rows that see no
      key, contiguous kv_len past S and a tree window that ends at S, each
-     with a bitwise repeat and a CUDA-graph replay; ssd_chunked (y and
+     with a bitwise repeat and a CUDA-graph replay; one-row windows (tq =
+     1: the AR decode step, VSD's proposal forwards) of the two decode
+     kernels at D 128 and 64 with bf16, fp32, int8 and fp8 K/V and kv_len
+     from 1, each repeated bit for bit; ssd_chunked (y and
      final state) at the
      mamba2-130m and tiny shapes, t in {1, 9, 16, 17, 50, 65, 2048},
      chunk 16 and 64, a nonzero initial state, bf16 and fp32, at a ragged
@@ -60,14 +63,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      acceptance equal to flat K's; then tiny-target with the head-dim-48
      tiny-mid draft, tiny-ssm and a dense hybrid (target = draft): SSM
      forward logits against the CPU, PARD tokens == AR tokens on both
-     layouts with max_batch 2 and 3 requests (a recycled slot);
+     layouts with max_batch 2 and 3 requests (a recycled slot); then
+     sampled serving at T = 0.8 with per-request seeds (flat PARD paged and
+     contiguous, the static tree (2,2,1,1), the adaptive tree, AR and VSD
+     on tiny-target / tiny-draft, VSD and AR on tiny-ssm): tokens equal to
+     the CPU port's request by request, a bitwise repeat, greedy requests
+     of the mixed batch equal to the all-greedy engine's, greedy VSD ==
+     greedy AR;
   6. engine at full width (llama3.1-8b target, llama3.2-1b draft, random
      bf16 weights from --seed, K=8, max_batch 4): paged PARD (the
      defaults), AR, the paged adaptive tree (default bank, 31-slot window),
      contiguous flat PARD, the contiguous static tree (2,2,1,1,1,1,1,1),
      paged PARD on int8 KV and the paged adaptive tree on fp8 KV (their
      kv_capacity and the share of tokens equal to the bf16 run's up to the
-     first divergence); then mamba2-130m as target (--seed) and draft
+     first divergence), paged PARD and the paged adaptive tree at T = 1.0
+     with 2 greedy requests of 8 (at most 64 new tokens), VSD greedy and
+     VSD at T = 1.0 (at most 32; K = 8 draft forwards a step), each sampled run
+     repeated bit for bit and its sampled step's device ops, launches and
+     device time profiled beside the greedy-only step's on one engine
+     state; then mamba2-130m as target (--seed) and draft
      (--seed + 1): paged PARD, contiguous PARD and paged AR; each asserts
      the exact launches of every kernel (one per attention layer per step;
      per Mamba2 layer one ssd_chunked per forward and one per state
@@ -707,9 +721,19 @@ def correctness_cases(torch):
             target, tq=9, ctx=[1000, 1030, 700, 1024], s=1024, **kq)))
         quant_at_s.append((f"{name} S=1024 window ends at S", dict(
             target, tq=31, ctx=[993, 1000, 64, 0], s=1024, template=WIDE, **kq)))
-    return {"decode_attention_paged": decode + split_decode + quant_decode,
+    # one-row windows (tq = 1): the AR decode step and VSD's K-1 proposal
+    # forwards, at the target's and the draft's head dims, bf16, fp32, int8
+    # and fp8 K/V, kv_len from 1 up (phase_correctness repeats each)
+    one_row = [(f"one-row {kn} {dn}", dict(shape, tq=1, ctx=[1, 2, 700, 4096],
+                                           kv_dtype=kd, q_dtype=qd))
+               for dn, shape in (("D=128", target), ("D=64", draft))
+               for kn, kd, qd in (("bf16", bf, bf), ("fp32", f32, f32),
+                                  ("int8", torch.int8, bf),
+                                  ("fp8", torch.float8_e4m3fn, bf))]
+    return {"decode_attention_paged": decode + split_decode + quant_decode
+            + one_row,
             "decode_attention": decode + split_decode + past_s + quant_decode
-            + quant_past_s,
+            + quant_past_s + one_row,
             "tree_attention_paged": tree + split_tree + quant_tree,
             "tree_attention": tree + split_tree + window_at_s + quant_tree
             + quant_at_s}
@@ -750,6 +774,13 @@ def phase_correctness(torch, args, dev="cuda"):
             if not err <= tol:
                 raise SmokeFailure(f"{name} disagrees with its plain version "
                                    f"({label}): {err} > {tol}")
+            if case["q"].shape[1] == 1:
+                again = fn(**case)
+                _sync(torch, dev)
+                log(f"[kernel vs plain] {name} {label}: a second call bitwise "
+                    f"equal: {torch.equal(out, again)}")
+                if not torch.equal(out, again):
+                    raise SmokeFailure(f"{name} {label}: two calls differ")
             key = (name, route(case)) if route(case) else name
             worst[key] = max(worst.get(key, 0.0), err)
     return worst
@@ -1032,15 +1063,19 @@ def _layers(cfg):
 
 def expected_launches(mode, tc, dc, cfg, steps, prefill_steps):
     """Launches per kernel of an engine run: one attention launch per
-    attention layer per forward; for Mamba2 layers one ssd_chunked per
-    layer per forward and one more per layer where the forward's states
-    are gathered (every PARD forward, and the AR forwards of the
+    attention layer per forward (VSD: K draft forwards a step); for Mamba2
+    layers one ssd_chunked per layer per forward and one more per layer
+    where the forward's states are gathered (every PARD forward, VSD's
+    first draft forward and its verify, and the AR forwards of the
     ``prefill_steps``, whose window is widened with pads)."""
     flat = "decode_attention_paged" if cfg.paged else "decode_attention"
     tree = "tree_attention_paged" if cfg.paged else "tree_attention"
     (ta, ts), (da, ds) = _layers(tc), _layers(dc) if dc else (0, 0)
     if mode == "ar":
         want = {flat: ta * steps, "ssd_chunked": ts * (steps + prefill_steps)}
+    elif mode == "vsd":
+        want = {flat: (ta + da * cfg.k) * steps,
+                "ssd_chunked": (2 * ts + (cfg.k + 1) * ds) * steps}
     elif cfg.tree is None:
         want = {flat: (ta + da) * steps,
                 "ssd_chunked": 2 * (ts + ds) * steps}
@@ -1050,10 +1085,12 @@ def expected_launches(mode, tc, dc, cfg, steps, prefill_steps):
 
 
 def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
-          label, dev):
+          label, dev, greedy=0):
+    """One engine run through ``Engine.run``; the first ``greedy``
+    requests decode greedily whatever the engine's temperature."""
     eng = Engine(tp, tc, dp, dc, config=cfg, device=dev)
-    for p in prompts:
-        eng.submit(p, max_new)
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new, temperature=0.0 if i < greedy else None)
     _sync(torch, dev)
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1072,7 +1109,8 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
     hist = (f" tree_hist={eng.stats['tree_hist'].tolist()} "
             f"switches={eng.stats['tree_switches']} bank={eng.bank.key}"
             if eng.bank is not None else "")
-    log(f"[engine {label}] {len(comps)} requests, {gen} tokens in "
+    log(f"[engine {label}] {len(comps)} requests ({greedy} greedy, "
+        f"T={cfg.temperature}), {gen} tokens in "
         f"{wall:.2f}s = {gen / wall:.1f} tok/s; steps={steps} "
         f"mean_accepted={eng.mean_accepted():.3f} "
         f"step_p50={lat['step_p50_ms']:.2f}ms "
@@ -1091,6 +1129,63 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
         raise SmokeFailure(f"engine {label}: launches {launches}, expected "
                            f"{want}")
     return {c.rid: c.tokens for c in comps}, launches, eng.kv_capacity_bytes()
+
+
+def step_cost(torch, eng, any_sampled, steps=3):
+    """Per step of the executor's next ``steps`` decode steps (one warm-up
+    first) under ``torch.profiler``: device operations, kernel launches and
+    device time (the summed self time of kernels, copies and memsets)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(n):
+        for _ in range(n):
+            eng.ex.harvest(eng.ex.dispatch(any_prefilling=False,
+                                           any_sampled=any_sampled))
+
+    def dev_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    run(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    on_dev = [e for e in rows if str(e.device_type).endswith("CUDA")
+              and dev_us(e) > 0]
+    launch_keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernelEx")
+    return dict(ops=sum(e.count for e in on_dev) / steps,
+                launches=sum(e.count for e in rows
+                             if e.key in launch_keys) / steps,
+                device_ms=sum(dev_us(e) for e in on_dev) / 1e3 / steps)
+
+
+def sampled_step_cost(torch, Engine, cfg, tp, tc, dp, dc, prompts, label):
+    """The sampled step's extra launches and device time against the
+    greedy-only step, on one engine state: 4 requests (2 greedy, 2
+    sampled) past prefill, each variant profiled on the next steps."""
+    eng = Engine(tp, tc, dp, dc, config=cfg, device="cuda")
+    for i, p in enumerate(prompts[:4]):
+        eng.submit(p, 64, temperature=0.0 if i < 2 else None)
+    while eng.sched.prefilling_count() or not eng.stats["steps"]:
+        eng.run(max_steps=eng.stats["steps"] + 1)
+    greedy = step_cost(torch, eng, any_sampled=False)
+    sampled = step_cost(torch, eng, any_sampled=True)
+    log(f"[sampled step {label}] per step, sampled vs greedy-only on the "
+        f"same engine state: device ops {sampled['ops']:.0f} vs "
+        f"{greedy['ops']:.0f} (+{sampled['ops'] - greedy['ops']:.0f}), "
+        f"kernel launches {sampled['launches']:.0f} vs "
+        f"{greedy['launches']:.0f} "
+        f"(+{sampled['launches'] - greedy['launches']:.0f}), device time "
+        f"{sampled['device_ms']:.3f} vs {greedy['device_ms']:.3f} ms "
+        f"(+{sampled['device_ms'] - greedy['device_ms']:.3f} ms)")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def phase_engine(torch, kernels, args, target="llama3.1-8b",
@@ -1115,7 +1210,12 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
     prompts = [rng.integers(0, tc.vocab_size, size=args.prompt_len)
                for _ in range(args.requests)]
     # the quantized runs: the int8 route of decode_attention_paged and the
-    # fp8 route of tree_attention_paged, each beside its bf16 run
+    # fp8 route of tree_attention_paged, each beside its bf16 run; the
+    # sampled runs at T = 1.0 with 2 greedy requests of 8, each repeated
+    # (seeded: bitwise equal), at 64 new tokens, and VSD (K = 8 draft
+    # forwards a step) at 32, for the time limit
+    sampled = dict(greedy=2, repeat=True, max_new=min(args.max_new, 64))
+    vsd_new = min(args.max_new, 32)
     runs = [
         ("pard paged", EngineConfig(), "decode_attention_paged"),
         ("ar paged", EngineConfig(mode="ar"), None),
@@ -1130,11 +1230,19 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
         ("adaptive tree paged fp8", EngineConfig(adaptive_tree=True,
                                                  kv_dtype="fp8"),
          ("tree_attention_paged", "fp8")),
+        ("pard paged T=1.0", EngineConfig(temperature=1.0), None, sampled),
+        ("adaptive tree paged T=1.0", EngineConfig(adaptive_tree=True,
+                                                   temperature=1.0), None,
+         sampled),
+        ("vsd paged", EngineConfig(mode="vsd"), None, dict(max_new=vsd_new)),
+        ("vsd paged T=1.0", EngineConfig(mode="vsd", temperature=1.0), None,
+         dict(sampled, max_new=vsd_new)),
     ]
     bf16_of = {"pard paged int8": "pard paged",
                "adaptive tree paged fp8": "adaptive tree paged"}
     tokens, main_launches, capacity = {}, {}, {}
-    for label, cfg, main in runs:
+    for label, cfg, main, *opt in runs:
+        opt = opt[0] if opt else {}
         # warm-up per configuration (library handles, allocator pools),
         # not counted
         warm = Engine(tp, tc, dp, dc, config=cfg, device=dev)
@@ -1142,26 +1250,49 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
         warm.run()
         del warm
         d_p, d_c = (None, None) if cfg.mode == "ar" else (dp, dc)
+        max_new = opt.get("max_new", args.max_new)
         tokens[label], launches, capacity[label] = serve(
             torch, kernels, Engine, cfg, tp, tc, d_p, d_c, prompts,
-            args.max_new, label, dev)
+            max_new, label, dev, greedy=opt.get("greedy", 0))
         if main is not None:
             kernel = main[0] if isinstance(main, tuple) else main
             main_launches[main] = launches.get(kernel, 0)
+        if opt.get("repeat"):
+            again, _, _ = serve(torch, kernels, Engine, cfg, tp, tc, d_p, d_c,
+                                prompts, max_new, f"{label} repeat", dev,
+                                greedy=opt["greedy"])
+            same = all(np.array_equal(again[r], t)
+                       for r, t in tokens[label].items())
+            log(f"[engine {label}] seeded repeat bitwise equal: {same}")
+            if not same:
+                raise SmokeFailure(f"engine {label}: a seeded repeat differs")
+        if cfg.temperature > 0 and dev == "cuda":
+            sampled_step_cost(torch, Engine, cfg, tp, tc, d_p, d_c, prompts,
+                              label)
         if dev == "cuda":
             torch.cuda.empty_cache()
 
-    def first_divergence(label, base):
+    def first_divergence(label, base, rids=None):
         shares = []
         for rid, toks in tokens[label].items():
+            if rids is not None and rid not in rids:
+                continue
             a, b = toks[args.prompt_len:], tokens[base][rid][args.prompt_len:]
-            diff = np.nonzero(a != b)[0]
-            shares.append((diff[0] if diff.size else len(a)) / len(a))
+            n = min(len(a), len(b))
+            diff = np.nonzero(a[:n] != b[:n])[0]
+            shares.append((diff[0] if diff.size else n) / n)
         return (f"mean {np.mean(shares):.3f} per request "
                 f"{[round(float(s), 3) for s in shares]}")
 
+    for label, cfg, *_ in runs:
+        if cfg.temperature > 0:
+            base = ("adaptive tree paged" if cfg.adaptive_tree else
+                    "vsd paged" if cfg.mode == "vsd" else "pard paged")
+            log(f"[sampled] {label}: the 2 greedy requests' tokens equal to "
+                f"the greedy run's up to the first divergence: "
+                f"{first_divergence(label, base, rids=(0, 1))}")
     for label in tokens:
-        if label == "ar paged":
+        if label == "ar paged" or "T=" in label:
             continue
         log(f"[ar comparison] {label}: share of tokens equal to AR tokens up "
             f"to the first divergence: {first_divergence(label, 'ar paged')}")
@@ -1463,6 +1594,104 @@ def phase_reference_ssm(torch, args, dev="cuda"):
             if not same:
                 raise SmokeFailure(f"{label}: {mode} {layout} tokens differ "
                                    f"from AR tokens")
+
+
+SAMPLED_T = 0.8                      # phase 5's sampled tiny engines
+SAMPLED_RUNS = {                     # label -> (model family, EngineConfig)
+    "pard paged": ("dense", dict(k=4)),
+    "pard contiguous": ("dense", dict(k=4, kv_layout="contiguous")),
+    "tree (2,2,1,1) paged": ("dense", dict(tree=(2, 2, 1, 1))),
+    "adaptive tree paged": ("dense", dict(k=4, adaptive_tree=True)),
+    "ar paged": ("dense", dict(mode="ar", k=4)),
+    "vsd paged": ("dense", dict(mode="vsd", k=4)),
+    "vsd tiny-ssm paged": ("tiny-ssm", dict(mode="vsd", k=4)),
+    "ar tiny-ssm paged": ("tiny-ssm", dict(mode="ar", k=4)),
+}
+
+
+def _sampled_tokens(torch, models, prompts, dev, temperature, **kw):
+    """Tokens of a tiny fp32 engine at ``temperature``: request i % 3 == 0
+    greedy, 1 on the engine's (seed, rid) stream, 2 with a seed of its
+    own."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.config import SamplingParams
+    tc, tp, dc, dp = models
+    eng = Engine(tp, tc, dp, dc, config=EngineConfig(
+        max_batch=3, max_len=256, kv_block_size=16, kv_dtype="fp32",
+        temperature=temperature, seed=5, **kw), device=dev)
+    rids = {}
+    for i, p in enumerate(prompts):
+        sp = [SamplingParams(max_new=24, temperature=0.0),
+              SamplingParams(max_new=24),
+              SamplingParams(max_new=24, seed=100 + i)][i % 3]
+        rids[eng.submit(p, params=sp)] = i
+    return {rids[c.rid]: c.tokens for c in eng.run()}, eng.stats["accepted"]
+
+
+def phase_reference_sampled(torch, args, dev="cuda"):
+    """Sampled serving in fp32 on the card at T = 0.8, tiny-target /
+    tiny-draft and tiny-ssm (target = draft): flat PARD paged and
+    contiguous, the static tree (2,2,1,1), the adaptive tree, AR and VSD.
+    Each run's tokens equal the CPU port's request by request (the
+    threefry keys draw the same bits on both), a repeat gives the same
+    tokens bit for bit, the greedy requests of the mixed batch equal the
+    all-greedy engine's, and greedy VSD equals greedy AR."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    rng = np.random.default_rng(args.seed + 31)
+    families = {}
+    for fam, (tn, dn) in (("dense", ("tiny-target", "tiny-draft")),
+                          ("tiny-ssm", ("tiny-ssm", "tiny-ssm"))):
+        tc, dc = get_config(tn), get_config(dn)
+        tp = init_params(tc, args.seed, "cpu", torch.float32)
+        dp = tp if dn == tn else init_params(dc, args.seed + 1, "cpu",
+                                              torch.float32)
+        families[fam] = {"cpu": (tc, tp, dc, dp),
+                         dev: (tc, _tree_to(tp, dev), dc, _tree_to(dp, dev))}
+    prompts = [rng.integers(0, 512, size=int(n))
+               for n in rng.integers(4, 40, size=6)]
+    greedy = {}
+    for label, (fam, kw) in SAMPLED_RUNS.items():
+        m = families[fam]
+        t0 = time.perf_counter()
+        card, acc = _sampled_tokens(torch, m[dev], prompts, dev, SAMPLED_T,
+                                    **kw)
+        wall = time.perf_counter() - t0
+        again, _ = _sampled_tokens(torch, m[dev], prompts, dev, SAMPLED_T,
+                                   **kw)
+        cpu, _ = _sampled_tokens(torch, m["cpu"], prompts, "cpu", SAMPLED_T,
+                                 **kw)
+        greedy[label], _ = _sampled_tokens(torch, m[dev], prompts, dev, 0.0,
+                                           **kw)
+        n = len(prompts)
+        checks = {
+            "repeat bitwise equal": all(np.array_equal(card[i], again[i])
+                                        for i in range(n)),
+            "== CPU port": all(np.array_equal(card[i], cpu[i])
+                               for i in range(n)),
+            "greedy rows == greedy engine": all(
+                np.array_equal(card[i], greedy[label][i])
+                for i in range(0, n, 3)),
+        }
+        sampled_differ = sum(not np.array_equal(card[i], greedy[label][i])
+                             for i in range(n) if i % 3)
+        log(f"[reference sampled] {label} T={SAMPLED_T} on the card "
+            f"({wall:.2f}s, accepted={acc}): "
+            + "; ".join(f"{k}: {v}" for k, v in checks.items())
+            + f"; sampled requests that differ from greedy: "
+            f"{sampled_differ} of {n - len(range(0, n, 3))}")
+        for k, v in checks.items():
+            if not v:
+                raise SmokeFailure(f"sampled {label}: {k} fails")
+    for vsd, ar in (("vsd paged", "ar paged"),
+                    ("vsd tiny-ssm paged", "ar tiny-ssm paged")):
+        ok = all(np.array_equal(greedy[vsd][i], greedy[ar][i])
+                 for i in range(len(prompts)))
+        log(f"[reference sampled] greedy {vsd} == greedy {ar}: {ok}")
+        if not ok:
+            raise SmokeFailure(f"greedy {vsd} tokens differ from {ar}")
 
 
 def phase_ssm_engine(torch, kernels, args, dev="cuda"):
@@ -2027,6 +2256,7 @@ def main(argv=None) -> int:
         timing.update(phase_ssd_timing(torch, args))
         phase_reference(torch, args)
         phase_reference_ssm(torch, args)
+        phase_reference_sampled(torch, args)
         launches = phase_engine(torch, kernels, args)
         launches.update(phase_ssm_engine(torch, kernels, args))
         errs.update(phase_train_correctness(torch, args))

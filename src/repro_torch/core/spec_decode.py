@@ -1,8 +1,8 @@
-"""Speculative decoding core shared with the serving engine: PARD, PARD
-trees and AR.
+"""Speculative decoding core shared with the serving engine: AR, VSD,
+PARD and PARD trees.
 
-Port of the greedy, chunked half of ``repro.core.spec_decode``, on paged
-or contiguous KV. A step advances a ``DecodeState``:
+Port of the chunked half of ``repro.core.spec_decode``, on paged or
+contiguous KV. A step advances a ``DecodeState``:
 
   * the generation buffer ``gen [B, L]`` holds committed tokens and ``n``
     counts them; commits write a full (K+1)-slot window at offset n (slots
@@ -14,6 +14,9 @@ or contiguous KV. A step advances a ``DecodeState``:
     ``[new committed tokens (A <= K+1) | mask x (K-1) | pad]`` proposes
     all K tokens; ONE target forward verifies them over ``[last committed,
     d_1..d_K]``;
+  * VSD draft (the paper's vanilla speculative decoding baseline): the
+    same window's committed tokens advance the draft and propose token 1,
+    then K-1 one-token AR forwards propose the rest (K draft forwards);
   * chunked prefill: a row with ``pf_pos < pf_len`` feeds prompt chunks
     through the same two forwards instead of draft/verify windows, commits
     nothing, and advances its cursor;
@@ -26,13 +29,23 @@ or contiguous KV. A step advances a ``DecodeState``:
     positions.
 
 Greedy verification is exactly lossless against AR decoding, flat or
-tree. Mamba2 (SSM) layers cannot roll back positionally: every forward of
-an SSM model over a window with slots past what the row keeps (the draft's
+tree. Temperature is per row (``DecodeState.temp``; one batch mixes
+greedy and sampled rows): sampled rows propose by sampling and the flat
+chain accepts by Leviathan speculative sampling, the tree by multi-round
+recursive rejection sampling (``core.acceptance``). Draws come from per-row
+threefry keys (``DecodeState.rngs``, ``core.prng``): a row's stream
+depends only on its own key and step count, and the bits are the JAX
+package's. Each step builder has a ``greedy_only`` variant without the
+sampled machinery, which the engine picks on the host when no occupied
+row samples: a step never reads ``temp`` back from the device.
+
+Mamba2 (SSM) layers cannot roll back positionally: every forward of an
+SSM model over a window with slots past what the row keeps (the draft's
 mask chain, the verify window's rejected drafts, pads of a short prompt
 chunk or of the AR window) collects its Mamba2 records (``collect_ssm``)
 and ``gather_ssm_states`` then sets each row's state to the one after its last
-kept token. Sampling, VSD and the uniform-batch ``generate_*`` paths come
-with later slices.
+kept token. The uniform-batch ``generate_*`` paths come with a later
+slice.
 """
 from __future__ import annotations
 
@@ -47,6 +60,7 @@ from ..models.attention import (TreeAttnInfo, as_bytes,
                                 contiguous_flat_index, paged_flat_index)
 from ..models.config import SSM, ModelConfig, scan_plan
 from ..models.ssm import gather_state
+from . import acceptance, prng
 from .acceptance import (greedy_chain_accept, greedy_tree_accept_rows,
                          tree_child_map)
 
@@ -63,6 +77,10 @@ class DecodeState:
                       paged pools, or contiguous rows when tables is None
       tables [B, MBS] int32 block tables, shared by target and draft
                       (None: contiguous caches)
+      temp   [B]      f32 per-row temperature (0 = greedy)
+      rngs   [B, 2]   per-row threefry keys: a sampled step splits each
+                      decoding row's key once, so a row's stream depends
+                      only on its own key and step count
       tree_idx [B]    per-row template index into the decoder's
                       ``TemplateBank`` (None when tree drafting is off)
       pf_pos [B]      chunked-prefill cursor: prompt tokens already cached
@@ -76,6 +94,8 @@ class DecodeState:
     tcache: Any
     dcache: Any = None
     tables: Optional[torch.Tensor] = None
+    temp: Optional[torch.Tensor] = None
+    rngs: Optional[torch.Tensor] = None
     tree_idx: Optional[torch.Tensor] = None
     pf_pos: Optional[torch.Tensor] = None
     pf_len: Optional[torch.Tensor] = None
@@ -141,6 +161,45 @@ def _topk_indices(logits, k: int):
 def _has_ssm(cfg: ModelConfig) -> bool:
     plan = scan_plan(cfg)
     return any(s.mixer == SSM for s in plan.prefix + plan.period)
+
+
+def ssm_leaves(cfg: ModelConfig, caches) -> list:
+    """Every Mamba2 conv and SSM state tensor of ``caches``: the leaves a
+    forward without ``collect_ssm`` advances in place."""
+    plan = scan_plan(cfg)
+    out = []
+    for specs, entries in ((plan.prefix, caches["prefix"]),
+                           (plan.period, caches["scan"])):
+        for spec, entry in zip(specs, entries):
+            if spec.mixer == SSM:
+                out.extend(entry.values())
+    return out
+
+
+def _pick_next(logits, temp, keys):
+    """[B, V] logits -> [B] next token: the argmax for temp == 0 rows, a
+    sample of softmax(logits / temp) under the row's own key otherwise."""
+    greedy = logits.argmax(dim=-1)
+    s = acceptance.row_categorical(keys, acceptance.scale_logits(logits, temp))
+    return torch.where(temp > 0, s, greedy)
+
+
+def _split_keys(state: DecodeState, prefilling):
+    """(next keys, this step's keys) of a sampled step: each row's key
+    splits once, but a prefilling row keeps its key, so a request's sampled
+    tokens do not depend on how its prompt was prefilled."""
+    next_keys, use = acceptance.split_row_keys(state.rngs)
+    if prefilling is not None:
+        next_keys = torch.where(prefilling[:, None], state.rngs, next_keys)
+    return next_keys, use
+
+
+def _sampling_keys(state: DecodeState, prefilling):
+    """(next keys, draft keys, acceptance keys) of a sampled speculative
+    step: this step's keys folded with 0 and 1."""
+    next_keys, use = _split_keys(state, prefilling)
+    return (next_keys, acceptance.fold_row_keys(use, 0),
+            acceptance.fold_row_keys(use, 1))
 
 
 def gather_ssm_states(records, idx) -> None:
@@ -418,7 +477,8 @@ class SpecDecoder:
     def window_slack(self) -> int:
         """Positions a step may touch beyond the committed count: the 2K
         draft window vs the verify window (K+1 flat, the bank's widest
-        template for a tree; AR decoders: the chunked AR window), +2."""
+        template for a tree; AR decoders: the chunked AR window), +2. VSD's
+        proposal forwards write positions n .. n+K-2, inside it."""
         verify = self.tree.max_slots if self.tree is not None else self.k + 1
         slack = max(2 * self.k, verify)
         if self.dp is None:
@@ -464,14 +524,21 @@ class SpecDecoder:
                        tree_info=tree_info, collect_ssm=records)
 
     # ----------------------------------------------------------------- AR
-    def _build_ar_step(self, chunked: bool = False):
-        """One greedy AR step (the engine's mode="ar"). ``chunked=True``
-        widens the window to ``prefill_chunk`` slots so prefilling rows
-        consume prompt chunks in the same forward; decoding rows carry
-        their last token at slot 0 plus pads (re-covered next step). A
-        Mamba2 target keeps the state after slot 0 (decoding rows) or after
-        the chunk's last real token: unlike the JAX engine's AR step, the
-        pads never reach the recurrent state."""
+    def _build_ar_step(self, chunked: bool = False,
+                       greedy_only: bool = False):
+        """One AR step (the engine's mode="ar"): temp == 0 rows commit the
+        argmax, temp > 0 rows sample softmax(logits / temp) under their own
+        key. ``chunked=True`` widens the window to ``prefill_chunk`` slots
+        so prefilling rows consume prompt chunks in the same forward;
+        decoding rows carry their last token at slot 0 plus pads
+        (re-covered next step). A Mamba2 target keeps the state after slot
+        0 (decoding rows) or after the chunk's last real token: unlike the
+        JAX engine's AR step, the pads never reach the recurrent state.
+
+        ``greedy_only=True`` leaves the keys alone. The JAX engine's AR
+        step splits every row's key on every step, sampling or not; the
+        tokens are the same, because a sampled row gets a fresh key at
+        admission and every step while it is decoding samples."""
         w = self.prefill_chunk if chunked else 1
 
         def step(state: DecodeState) -> DecodeState:
@@ -480,7 +547,7 @@ class SpecDecoder:
             cp = n - 1
             pf_pos = state.pf_pos
             frozen = done
-            records = ssm_idx = None
+            records = ssm_idx = prefilling = None
             if chunked:
                 prefilling, pf = _phase(state)
                 cl = torch.minimum(torch.full_like(pf, w), state.pf_len - pf)
@@ -495,11 +562,17 @@ class SpecDecoder:
                                            state.tcache, cp, state.tables,
                                            records=records)
             gather_ssm_states(records, ssm_idx)
-            nxt = logits[:, 0].argmax(dim=-1)
+            rngs = state.rngs
+            if greedy_only:
+                nxt = logits[:, 0].argmax(dim=-1)
+            else:
+                rngs, use = _split_keys(state, prefilling)
+                nxt = _pick_next(logits[:, 0], state.temp, use)
             gen2 = _row_write(gen, nxt[:, None], n)
             return dataclasses.replace(
                 state, gen=torch.where(frozen[:, None], gen, gen2),
-                n=torch.where(frozen, n, n + 1), tcache=tcache, pf_pos=pf_pos)
+                n=torch.where(frozen, n, n + 1), tcache=tcache, pf_pos=pf_pos,
+                rngs=rngs)
         return step
 
     # --------------------------------------------------------------- PARD
@@ -528,28 +601,95 @@ class SpecDecoder:
         lg = logits.gather(1, sl[:, :, None].expand(-1, -1, logits.shape[-1]))
         return lg, dcache
 
+    def _propose_vsd(self, gen, n, m, dcache, tables, pfinfo, temp, dkeys):
+        """VSD draft: call 1 runs the committed window (real tokens only,
+        K+1 slots) and proposes token 1 from slot A-1; K-1 one-token AR
+        forwards propose the rest, each sampled under ``fold_in(dkeys, j)``
+        (argmax when ``dkeys`` is None). Returns (props [B, K], proposal
+        logits [B, K, V], draft caches).
+
+        The caches are written in place. A Mamba2 draft's states are copied
+        after call 1's gather and restored after the proposals, as the JAX
+        package throws away what the proposal forwards did to its cache.
+        Their attention KV at positions n .. n+K-2 stays and is harmless:
+        it lies past every committed token, so nothing reads it before the
+        next step's call 1, which starts at m' = n, writes its window over
+        it."""
+        k = self.k
+        tok = _draft_window(gen, n, m, k, self.dc.mask_token_id)[:, :k + 1]
+        pos = m
+        ssm_idx = n - m - 1
+        if pfinfo is not None:
+            prefilling, pf, cl = pfinfo
+            tok = torch.where(prefilling[:, None],
+                              _chunk_window(gen, pf, cl, k + 1), tok)
+            pos = torch.where(prefilling, pf, pos)
+            ssm_idx = torch.where(prefilling, cl - 1, ssm_idx)
+        records = []
+        logits, dcache = self._forward(self.dp, self.dc, tok, dcache, pos,
+                                       tables, records=records)
+        gather_ssm_states(records, ssm_idx)
+        leaves = ssm_leaves(self.dc, dcache)
+        snapshot = [leaf.clone() for leaf in leaves]
+        rows = _arange(gen.shape[0], gen)
+        lg = [logits[rows, (n - m - 1).clamp(0, k)]]
+        props = []
+        for j in range(k):
+            if dkeys is None:
+                pj = lg[-1].argmax(dim=-1)
+            else:
+                pj = _pick_next(lg[-1], temp,
+                                acceptance.fold_row_keys(dkeys, j))
+            props.append(pj)
+            if j == k - 1:
+                break
+            lgn, dcache = self._forward(self.dp, self.dc, pj[:, None], dcache,
+                                        n + j, tables)
+            lg.append(lgn[:, 0])
+        for leaf, saved in zip(leaves, snapshot):
+            leaf.copy_(saved)
+        return torch.stack(props, dim=1), torch.stack(lg, dim=1), dcache
+
     def _build_spec_step(self, mode: str, chunked: bool = False,
                          greedy_only: bool = False):
-        """One greedy PARD step with chunked prefill (the engine's step).
-        Returns ``step(state) -> (state, a)`` where ``a [B]`` is each row's
-        accepted draft count (0 for frozen rows)."""
-        if mode != "pard":
-            raise NotImplementedError("VSD comes with a later slice of the port")
-        if not (chunked and greedy_only):
+        """One flat speculative step with chunked prefill (the engine's
+        step): mode "pard" drafts with one PARD forward, "vsd" with K AR
+        draft forwards. Returns ``step(state) -> (state, a)`` where ``a
+        [B]`` is each row's accepted draft count (0 for frozen rows).
+
+        Greedy rows propose the draft's argmax and keep the longest prefix
+        matching the target argmax; sampled rows (temp > 0) propose by
+        sampling the draft's softmax(logits / temp) and accept by Leviathan
+        speculative sampling. ``greedy_only=True`` builds the variant
+        without the sampled machinery and without key splitting, which
+        commits the same tokens when no row samples."""
+        if not chunked:
             raise NotImplementedError(
-                "the unchunked step (generate_*) and sampled acceptance come "
-                "with later slices of the port")
+                "the unchunked step (generate_*) comes with a later slice of "
+                "the port")
         k = self.k
         cw = self.chunk_width
 
         def step(state: DecodeState):
             gen, n, m, done = state.gen, state.n, state.m, state.done
-            tables = state.tables
+            tables, temp = state.tables, state.temp
             prefilling, pf = _phase(state)
             cl = torch.minimum(torch.full_like(pf, cw), state.pf_len - pf)
-            lg, dcache = self._pard_depth_logits(gen, n, m, state.dcache,
-                                                 tables, (prefilling, pf, cl))
-            props = lg.argmax(dim=-1)                              # [B, K]
+            pfinfo = (prefilling, pf, cl)
+            next_keys, dkeys, akeys = ((state.rngs, None, None) if greedy_only
+                                       else _sampling_keys(state, prefilling))
+            if mode == "pard":
+                lg, dcache = self._pard_depth_logits(gen, n, m, state.dcache,
+                                                     tables, pfinfo)
+                props = lg.argmax(dim=-1)                          # [B, K]
+                if not greedy_only:
+                    # one key per row draws the whole [K, V] block
+                    sampled = prng.categorical(
+                        dkeys, acceptance.scale_logits(lg, temp))
+                    props = torch.where((temp > 0)[:, None], sampled, props)
+            else:
+                props, lg, dcache = self._propose_vsd(
+                    gen, n, m, state.dcache, tables, pfinfo, temp, dkeys)
 
             # verify window: [last committed, d_1..d_K]
             vin = torch.cat([gen.gather(1, (n - 1)[:, None]), props], dim=1)
@@ -561,6 +701,14 @@ class SpecDecoder:
                                            state.tcache, vpos, tables,
                                            records=records)
             a, _, commit = greedy_chain_accept(logits, props)
+            if not greedy_only:
+                qprob = torch.softmax(acceptance.scale_logits(lg, temp), -1)
+                p_full = acceptance.temp_softmax(logits, temp)
+                a_s, _, commit_s = acceptance.leviathan_accept(
+                    p_full, qprob, props, akeys)
+                sampled = temp > 0
+                a = torch.where(sampled, a_s, a)
+                commit = torch.where(sampled, commit_s, commit)
             # a Mamba2 target keeps the state after the last accepted draft
             # (slot a), a prefilling row after its chunk's last real token
             gather_ssm_states(records, torch.where(prefilling, cl - 1, a))
@@ -577,7 +725,7 @@ class SpecDecoder:
                 state, gen=_row_write(gen, vec, n),
                 n=n + torch.where(frozen, 0, a + 1),
                 m=torch.where(frozen, m, n), tcache=tcache, dcache=dcache,
-                pf_pos=torch.where(prefilling, pf + cl, pf))
+                rngs=next_keys, pf_pos=torch.where(prefilling, pf + cl, pf))
             return new_state, torch.where(frozen, 0, a)
         return step
 
@@ -594,7 +742,7 @@ class SpecDecoder:
 
             t = dict(parent=dev(bank.parent), depth=dev(bank.depth),
                      choice=dev(bank.choice), anc=dev(bank.anc),
-                     nslots=dev(bank.nslots),
+                     child_map=dev(bank.child_map), nslots=dev(bank.nslots),
                      # causal ancestor-or-self masks: slot i sees 0..i
                      chain_anc=dev((np.int64(2) << np.arange(s)) - 1))
             self._bank_on[device] = t
@@ -602,8 +750,8 @@ class SpecDecoder:
 
     def _build_tree_step(self, chunked: bool = False,
                          greedy_only: bool = False):
-        """One greedy tree-verification step over per-row templates with
-        chunked prefill (the engine's step when trees are on). Returns
+        """One tree-verification step over per-row templates with chunked
+        prefill (the engine's step when trees are on). Returns
         ``step(state) -> (state, a, rank)``: ``a [B]`` accepted depths (0
         for frozen rows), ``rank [B, D]`` the accepted sibling rank per
         depth (-1 where rejected or frozen), the adaptive controller's
@@ -611,20 +759,25 @@ class SpecDecoder:
 
         Each row's template metadata is gathered from the bank by
         ``state.tree_idx``. Draft: ONE PARD forward gives one proposal
-        distribution per depth, and the row's template takes its top-b_d
-        tokens at depth d. Verify: ONE target forward over the packed tree
-        with logical positions root + depth and the tree mask; ``win_len``
-        bounds each row to its own template. Prefilling rows ride the same
-        forwards: their chunk is a causal "tree" (all-lower-bits ancestor
-        masks, ``win_len`` = the chunk's real tokens), sliced at the chunk
-        width and padded to the window. Commit: the longest root path
-        matching the target argmax; ``compact_tree_caches`` then moves its
-        KV onto the committed positions, and losing branches are
-        re-covered by the next window like flat rejects."""
-        if not (chunked and greedy_only):
+        distribution per depth; a greedy row's template takes the top-b_d
+        tokens at depth d, a sampled row draws every node i.i.d. from its
+        depth's softmax(logits / temp). Verify: ONE target forward over the
+        packed tree with logical positions root + depth and the tree mask;
+        ``win_len`` bounds each row to its own template. Prefilling rows
+        ride the same forwards: their chunk is a causal "tree"
+        (all-lower-bits ancestor masks, ``win_len`` = the chunk's real
+        tokens), sliced at the chunk width and padded to the window.
+        Commit: a greedy row keeps the longest root path matching the
+        target argmax, a sampled row runs multi-round recursive rejection
+        sampling over each surviving node's children;
+        ``compact_tree_caches`` then moves the path's KV onto the committed
+        positions, and losing branches are re-covered by the next window
+        like flat rejects. ``greedy_only=True`` builds the variant without
+        the sampled machinery and without key splitting."""
+        if not chunked:
             raise NotImplementedError(
-                "the unchunked tree step (generate_*) and sampled tree "
-                "acceptance come with later slices of the port")
+                "the unchunked tree step (generate_*) comes with a later "
+                "slice of the port")
         bank = self.tree
         d, s = bank.max_depth, bank.max_slots
         max_b = bank.max_branching
@@ -639,9 +792,12 @@ class SpecDecoder:
             choice, anc = meta["choice"][sel], meta["anc"][sel]
             nslots = meta["nslots"][sel]
             node_depth = depth[:, 1:]                              # [B, N]
+            temp = state.temp
 
             prefilling, pf = _phase(state)
             cl = torch.minimum(torch.full_like(pf, cw), state.pf_len - pf)
+            next_keys, dkeys, akeys = ((state.rngs, None, None) if greedy_only
+                                       else _sampling_keys(state, prefilling))
 
             # draft: depth distributions -> per-row template tokens; one
             # top-max_b per depth covers every template's ranks
@@ -651,6 +807,15 @@ class SpecDecoder:
             di = (node_depth - 1).clamp(min=0)
             per_node = topk.gather(1, di[:, :, None].expand(-1, -1, max_b))
             props = per_node.gather(2, choice[:, 1:, None])[..., 0]  # [B, N]
+            if not greedy_only:
+                # sampled rows: i.i.d. candidates per node (multi-round
+                # acceptance needs sibling draws from q, not top-k)
+                scaled = acceptance.scale_logits(lg, temp)         # [B,D,V]
+                sampled = temp > 0
+                props = torch.where(
+                    sampled[:, None],
+                    acceptance.sample_tree_props_rows(scaled, node_depth,
+                                                      dkeys), props)
 
             # verify: one target forward over the packed tree
             vin = torch.cat([gen.gather(1, (n - 1)[:, None]), props], dim=1)
@@ -671,9 +836,16 @@ class SpecDecoder:
                                            state.tcache, win_start, tables,
                                            positions=positions,
                                            tree_info=tinfo)
-            a, tok_depth, src_slot, commit_tok, rank = \
-                greedy_tree_accept_rows(logits, props, parent, depth, choice,
-                                        anc, nslots, d)
+            out = greedy_tree_accept_rows(logits, props, parent, depth,
+                                          choice, anc, nslots, d)
+            if not greedy_only:
+                out_s = acceptance.sampled_tree_accept_rows(
+                    acceptance.temp_softmax(logits, temp),
+                    torch.softmax(scaled, dim=-1), props,
+                    meta["child_map"][sel], akeys, d, max_b)
+                out = [torch.where(sampled.reshape((-1,) + (1,) * (g.ndim - 1)),
+                                   s_, g) for s_, g in zip(out_s, out)]
+            a, tok_depth, src_slot, commit_tok, rank = out
 
             # frozen rows commit nothing: done rows stay done, prefilling
             # rows consumed a prompt chunk instead of a verify window
@@ -695,7 +867,7 @@ class SpecDecoder:
                 state, gen=_row_write(gen, vec, n),
                 n=n + torch.where(frozen, 0, a + 1),
                 m=torch.where(frozen, m, n), tcache=tcache, dcache=dcache,
-                pf_pos=torch.where(prefilling, pf + cl, pf))
+                rngs=next_keys, pf_pos=torch.where(prefilling, pf + cl, pf))
             return (new_state, torch.where(frozen, 0, a),
                     torch.where(frozen[:, None], -1, rank))
         return step

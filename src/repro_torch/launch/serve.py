@@ -8,9 +8,13 @@ Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
 the tiny-* configs there). ``--tree 2,2,1,1`` drafts a static candidate
 tree, ``--adaptive-tree`` picks per request from the default bank at depth
 ``--k``; ``--contiguous`` keeps full-length KV rows instead of the paged
-pool; ``--kv-dtype int8`` / ``fp8`` stores quantized KV. Prints
-throughput, mean accepted tokens per step, latency percentiles, KV usage
-(scales included) and, with trees, the template histogram.
+pool; ``--kv-dtype int8`` / ``fp8`` stores quantized KV; ``--mode vsd``
+drafts with K AR forwards of the draft (vanilla speculative decoding).
+``--temperature 0.8`` samples (seeded by ``--seed``), and
+``--greedy-requests N`` keeps the first N requests greedy, so one batch
+mixes greedy and sampled rows. Prints throughput, mean accepted tokens per
+step and the temperature mix, latency percentiles, KV usage (scales
+included) and, with trees, the template histogram.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--target", required=True)
     ap.add_argument("--draft", default=None)
-    ap.add_argument("--mode", default="pard", choices=["ar", "pard"])
+    ap.add_argument("--mode", default="pard", choices=["ar", "vsd", "pard"])
     ap.add_argument("--tree", default=None, metavar="B1,B2,...",
                     help="tree-structured PARD drafting: per-depth branching "
                          "factors of the candidate tree (e.g. 2,2,1,1); "
@@ -37,8 +41,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy); trees accept "
+                         "sampled siblings by multi-round rejection")
+    ap.add_argument("--greedy-requests", type=int, default=0, metavar="N",
+                    help="submit the first N requests with temperature 0 "
+                         "(the rest use --temperature): one batch mixes "
+                         "greedy and sampled rows")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and the prompts")
+                    help="seed of the random weights, the prompts and the "
+                         "engine's sampling keys")
     layout = ap.add_mutually_exclusive_group()
     layout.add_argument("--paged", dest="kv_layout", action="store_const",
                         const="paged", help="block-paged KV cache (default)")
@@ -81,16 +93,18 @@ def main(argv=None):
     dp = dc = None
     if args.mode != "ar":
         if not args.draft:
-            raise SystemExit("--draft is required for --mode pard")
+            raise SystemExit(f"--draft is required for --mode {args.mode}")
         dc = get_config(args.draft)
         dp = init_params(dc, args.seed + 1, device, torch.bfloat16)
     eng = Engine(tp, tc, dp, dc, config=EngineConfig.from_args(args),
                  device=device)
 
     rng = np.random.default_rng(args.seed)
-    for _ in range(args.requests):
+    for i in range(args.requests):
+        # the first --greedy-requests decode greedily whatever the default
         eng.submit(rng.integers(0, tc.vocab_size, size=args.prompt_len),
-                   args.max_new)
+                   args.max_new,
+                   temperature=0.0 if i < args.greedy_requests else None)
     t0 = time.perf_counter()
     comps = eng.run()
     wall = time.perf_counter() - t0
@@ -101,7 +115,10 @@ def main(argv=None):
           f"generated={total} tokens wall={wall:.2f}s "
           f"throughput={total / wall:.1f} tok/s "
           f"steps={eng.stats['steps']} "
-          f"mean_accepted={eng.mean_accepted():.2f}")
+          f"mean_accepted={eng.mean_accepted():.2f} "
+          f"temperature={args.temperature} "
+          f"greedy_requests={min(args.greedy_requests, args.requests)}/"
+          f"{args.requests}")
     print(f"step_p50={lat['step_p50_ms']:.1f}ms "
           f"ttft_p50={lat['ttft_p50_ms']:.0f}ms "
           f"tok_p50={lat['tok_p50_ms']:.1f}ms "

@@ -2,7 +2,7 @@
 ``repro.serving.config``) with the JAX package's defaults.
 
 Settings outside the port's slices so far raise ``NotImplementedError``:
-mode ``vsd``, the prefix cache, ``tp``/``dp`` > 1 and temperature > 0.
+the prefix cache and ``tp``/``dp`` > 1.
 """
 from __future__ import annotations
 
@@ -19,11 +19,18 @@ def _later(what: str):
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """Per-request decode options: ``max_new`` tokens to generate, the
-    temperature (0 or None = greedy, the only ported rule) and
-    ``tree_idx``, which pins one TemplateBank template (tree engines)."""
+    """Per-request decode options.
+
+    ``max_new``     tokens to generate (required by submit time);
+    ``temperature`` 0 = greedy, None = the engine default;
+    ``seed``        the request's own seed: None derives its stream from the
+                    engine seed and the request id, a seed makes its sampled
+                    tokens independent of the engine seed and the batch;
+    ``tree_idx``    pins one TemplateBank template (tree engines).
+    """
     max_new: Optional[int] = None
     temperature: Optional[float] = None
+    seed: Optional[int] = None
     tree_idx: Optional[int] = None
 
     def __post_init__(self):
@@ -32,8 +39,20 @@ class SamplingParams:
         if self.temperature is not None and self.temperature < 0:
             raise ValueError(
                 f"temperature must be >= 0, got {self.temperature}")
-        if self.temperature:
-            _later("sampling (temperature > 0)")
+
+    def merged(self, max_new: Optional[int]) -> "SamplingParams":
+        """Resolve a positional ``max_new`` against this object: both may
+        give it only if they agree."""
+        if max_new is None:
+            if self.max_new is None:
+                raise ValueError("max_new is required: pass it positionally "
+                                 "or set SamplingParams.max_new")
+            return self
+        if self.max_new is not None and self.max_new != max_new:
+            raise ValueError(
+                f"conflicting max_new: positional {max_new} vs "
+                f"SamplingParams.max_new={self.max_new}")
+        return dataclasses.replace(self, max_new=max_new)
 
 
 @dataclasses.dataclass
@@ -49,6 +68,7 @@ class EngineConfig:
     max_len: int = 1024
     temperature: float = 0.0
     eos_id: Optional[int] = None
+    seed: int = 0
     kv_layout: str = "paged"
     kv_block_size: int = 64
     kv_num_blocks: Optional[int] = None
@@ -95,14 +115,10 @@ class EngineConfig:
         if not 0.0 < self.tree_ewma <= 1.0:
             raise ValueError(f"tree_ewma must be in (0, 1], "
                              f"got {self.tree_ewma}")
-        if self.mode == "vsd":
-            _later("VSD")
         if self.prefix_cache:
             _later("the prefix cache")
         if self.tp > 1 or self.dp > 1:
             _later("multi-device serving (tp/dp > 1)")
-        if self.temperature > 0:
-            _later("sampling (temperature > 0)")
 
     @property
     def paged(self) -> bool:

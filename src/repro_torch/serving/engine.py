@@ -10,8 +10,14 @@ over the scheduler (host) and the executor (device).
     (``"contiguous"``);
   * one step advances all active slots; finished slots free at once and
     new requests admit on the next tick (continuous batching);
-  * modes: "pard" (one draft forward + one verify forward per step) and
-    "ar" (the baseline); greedy verification makes them token-identical;
+  * modes: "pard" (one draft forward + one verify forward per step),
+    "vsd" (K AR draft forwards + one verify forward: the paper's vanilla
+    speculative decoding baseline) and "ar"; greedy verification makes
+    them token-identical;
+  * sampling: a per-request temperature (``SamplingParams``; the engine's
+    ``temperature`` by default) and seed; one batch mixes greedy and
+    sampled rows, and a request's sampled tokens depend only on its seed
+    (or the engine seed and its request id), never on the batch;
   * tree drafting (``tree=`` a static template, ``adaptive_tree=True`` the
     default bank with per-request re-selection): the PARD draft fills a
     candidate tree and one forward verifies it, still token-identical.
@@ -47,7 +53,7 @@ class Engine:
             # the AR baseline never reads draft caches
             draft_params = draft_cfg = None
         elif draft_params is None:
-            raise ValueError("mode 'pard' needs a draft model")
+            raise ValueError(f"mode {self.mode!r} needs a draft model")
         for name, params in (("target", target_params), ("draft", draft_params)):
             if params is None:
                 continue
@@ -74,7 +80,7 @@ class Engine:
         self.ex = Executor(self.dec, target_cfg, draft_cfg, self.mode,
                            config.max_batch, config.max_len, self.paged,
                            config.kv_block_size, nb, config.kv_dtype,
-                           self.device)
+                           self.device, seed=config.seed)
         self.ctrl = (TreeController(self.bank, config.max_batch,
                                     config.tree_ewma)
                      if config.adaptive_tree and self.bank is not None
@@ -82,6 +88,7 @@ class Engine:
         self.sched = Scheduler(self.dec, self.ex, self.alloc,
                                max_batch=config.max_batch,
                                max_len=config.max_len, eos_id=config.eos_id,
+                               temperature=config.temperature,
                                admit_window=config.admit_window,
                                prefill_budget=config.prefill_budget,
                                ctrl=self.ctrl,
@@ -90,10 +97,16 @@ class Engine:
         self.peak_kv_bytes_in_use = 0 if self.paged else self.kv_capacity_bytes()
 
     def submit(self, prompt, max_new: Optional[int] = None,
+               temperature: Optional[float] = None,
+               tree_idx: Optional[int] = None,
                params: Optional[SamplingParams] = None) -> int:
-        """Queue a request: ``submit(prompt, max_new)`` or
-        ``submit(prompt, params=SamplingParams(max_new=..))``."""
-        return self.sched.submit(prompt, max_new, params=params)
+        """Queue a request: ``submit(prompt, max_new, temperature=..,
+        tree_idx=..)`` or ``submit(prompt, params=SamplingParams(max_new=..,
+        temperature=.., seed=.., tree_idx=..))``; ``temperature`` overrides
+        the engine default for this request (0 = greedy), ``tree_idx`` pins
+        one bank template."""
+        return self.sched.submit(prompt, max_new, temperature, tree_idx,
+                                 params=params)
 
     def run(self, max_steps: int = 100000):
         """Serve until every request completed (or ``max_steps`` steps)."""

@@ -6,11 +6,14 @@ or contiguous rows), the one ``DecodeState`` and the step functions built
 by ``SpecDecoder`` with chunked prefill, so every step advances decoding
 rows AND consumes prompt chunks for prefilling rows in the same two
 forwards. Admission writes the prompt into ``gen``, arms the prefill
-cursor and zeroes the slot's Mamba2 states; retirement freezes the row;
+cursor, sets the row's temperature and threefry key and zeroes the slot's
+Mamba2 states; retirement freezes the row and zeroes its temperature;
 ``sync_tables`` pushes the allocator's host block tables when they
 change; the scheduler's template
 re-selections (tree drafting) are applied to ``tree_idx`` at the next
-dispatch, before the step.
+dispatch, before the step. Each step has a greedy-only variant, chosen on
+the host when no occupied row samples: greedy batches run the same
+launches as before sampling was ported.
 
 ``dispatch`` runs one step eagerly on the current stream and returns a
 handle of device tensors; ``harvest`` copies them to the host, which waits
@@ -25,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import acceptance, prng
 from ..core.spec_decode import DecodeState, SpecDecoder
 from ..models import init_caches
 from ..models.config import SSM, ModelConfig, scan_plan
@@ -50,7 +54,8 @@ def zero_ssm_rows(cfg: ModelConfig, caches, slot: int) -> None:
 @dataclasses.dataclass
 class StepHandle:
     """One dispatched step's outputs, still on the device. ``a`` is None
-    for mode="ar", ``rank`` [B, D] only for tree steps; ``live`` marks the
+    for mode="ar", ``rank`` [B, D] (accepted sibling rank per depth, -1
+    where rejected) only for tree steps; ``live`` marks the
     rows the step committed tokens for; ``tree_sel`` is the host copy of
     the per-slot templates the step ran with."""
     a: Optional[torch.Tensor]
@@ -79,7 +84,7 @@ class Executor:
                  draft_cfg: Optional[ModelConfig], mode: str, max_batch: int,
                  max_len: int, paged: bool, kv_block_size: int,
                  num_blocks: Optional[int], kv_dtype: str,
-                 device: torch.device):
+                 device: torch.device, seed: int = 0):
         self.dec = dec
         self.cfgs = [c for c in (target_cfg, draft_cfg) if c is not None]
         self.mode = mode
@@ -87,8 +92,11 @@ class Executor:
         self.device = device
         self._steps = {}
         self._tables_version = -1
-        # draft forwards per step: one PARD window (flat or tree), none for AR
-        self._n_draft = 0 if mode == "ar" else 1
+        # draft forwards per step: one PARD window (flat or tree), K for
+        # VSD, none for AR
+        self._n_draft = 0 if mode == "ar" else (dec.k if mode == "vsd" else 1)
+        # request keys derive from this one (on the host: two words)
+        self._rng_base = prng.key(seed)
 
         # caches in the kv_dtype by name: int8 / fp8 add their scale leaves
         cfgs = self.cfgs
@@ -116,6 +124,8 @@ class Executor:
             tcache=caches[0], dcache=caches[1] if len(caches) > 1 else None,
             tables=(zeros(max_batch, kv_pool.blocks_for(max_len, kv_block_size),
                           dt=torch.int32) if paged else None),
+            temp=zeros(max_batch, dt=torch.float32),
+            rngs=acceptance.make_row_keys(seed, np.arange(max_batch), device),
             tree_idx=zeros(max_batch) if dec.tree is not None else None,
             pf_pos=zeros(max_batch), pf_len=zeros(max_batch))
 
@@ -127,11 +137,15 @@ class Executor:
             self.state.tables.copy_(torch.from_numpy(alloc.tables))
             self._tables_version = alloc.version
 
-    def admit_row(self, slot: int, prompt: np.ndarray, tree_idx: int = 0) -> None:
+    def admit_row(self, slot: int, prompt: np.ndarray, tree_idx: int = 0,
+                  temperature: float = 0.0, rid: int = 0,
+                  seed: Optional[int] = None) -> None:
         """Arm ``slot`` for a new request: prompt into ``gen``, counters to
         the committed state, prefill cursor at 0, Mamba2 states zeroed,
-        template ``tree_idx`` (tree drafting). No forward runs here: the
-        steps prefill chunk by chunk."""
+        template ``tree_idx`` (tree drafting), the temperature, and the
+        row's key: ``key(seed)`` for a request with its own seed, else the
+        engine key folded with the request id ``rid``. No forward runs
+        here: the steps prefill chunk by chunk."""
         p = len(prompt)
         row = np.zeros((self.max_len,), np.int64)
         row[:p] = prompt
@@ -142,40 +156,54 @@ class Executor:
         st.done[slot] = False
         st.pf_pos[slot] = 0
         st.pf_len[slot] = p - 1
+        st.temp[slot] = float(temperature)
+        row_key = (prng.fold_in(self._rng_base, rid) if seed is None
+                   else prng.key(seed))
+        st.rngs[slot] = row_key.to(self.device)
         for cfg, caches in zip(self.cfgs, (st.tcache, st.dcache)):
             zero_ssm_rows(cfg, caches, slot)
         if st.tree_idx is not None:
             self.set_tree_idx(slot, tree_idx)
 
     def retire_row(self, slot: int) -> None:
+        """Freeze ``slot`` and reset its temperature: a free slot is a
+        greedy row, as the host's choice of step variant assumes."""
         self.state.done[slot] = True
+        self.state.temp[slot] = 0.0
 
     def set_tree_idx(self, slot: int, tree_idx: int) -> None:
         """Pin ``slot`` to bank template ``tree_idx`` (tree drafting)."""
         self.state.tree_idx[slot] = int(tree_idx)
 
-    def _step_fn(self, variant: str):
-        if variant not in self._steps:
+    def _step_fn(self, variant: str, greedy_only: bool):
+        key = (variant, greedy_only)
+        if key not in self._steps:
             if self.mode == "ar":
                 # the 1-wide decode window, and the prefill_chunk-wide mixed
                 # window for ticks where some row still prefills
-                self._steps[variant] = self.dec._build_ar_step(
-                    chunked=variant == "mixed")
+                self._steps[key] = self.dec._build_ar_step(
+                    chunked=variant == "mixed", greedy_only=greedy_only)
             elif self.dec.tree is not None:
-                self._steps[variant] = self.dec._build_tree_step(
-                    chunked=True, greedy_only=True)
+                self._steps[key] = self.dec._build_tree_step(
+                    chunked=True, greedy_only=greedy_only)
             else:
-                self._steps[variant] = self.dec._build_spec_step(
-                    "pard", chunked=True, greedy_only=True)
-        return self._steps[variant]
+                self._steps[key] = self.dec._build_spec_step(
+                    self.mode, chunked=True, greedy_only=greedy_only)
+        return self._steps[key]
 
     def dispatch(self, any_prefilling: bool = True,
-                 tree_sel: Optional[np.ndarray] = None) -> StepHandle:
+                 tree_sel: Optional[np.ndarray] = None,
+                 any_sampled: bool = True) -> StepHandle:
         """Run one step. ``any_prefilling`` (host knowledge) selects the AR
         window width; ``tree_sel`` [B] (tree drafting) holds the scheduler's
-        staged per-slot templates, applied to ``tree_idx`` before the step."""
+        staged per-slot templates, applied to ``tree_idx`` before the step;
+        ``any_sampled=False`` (no occupied row has temperature > 0, host
+        knowledge) selects the greedy-only step. Greedy rows never read
+        their keys and a sampled row's key is fresh at admission, so
+        switching variants between steps keeps every row's tokens."""
         variant = "mixed" if (any_prefilling and self.mode == "ar") \
             else "decode"
+        step = self._step_fn(variant, greedy_only=not any_sampled)
         st = self.state
         if tree_sel is not None:
             st.tree_idx.copy_(torch.from_numpy(
@@ -183,11 +211,11 @@ class Executor:
         live = ~(st.done | (st.pf_pos < st.pf_len))
         a = rank = None
         if self.mode == "ar":
-            self.state = self._step_fn(variant)(st)
+            self.state = step(st)
         elif self.dec.tree is not None:
-            self.state, a, rank = self._step_fn(variant)(st)
+            self.state, a, rank = step(st)
         else:
-            self.state, a = self._step_fn(variant)(st)
+            self.state, a = step(st)
         return StepHandle(a=a, rank=rank, live=live, n=self.state.n,
                           gen=self.state.gen, n_draft=self._n_draft,
                           tree_sel=(None if tree_sel is None

@@ -15,6 +15,9 @@ The ``Scheduler`` owns every decision that does not touch the device:
     ``SamplingParams.tree_idx``, or picked by the adaptive
     ``TreeController`` at admission and re-picked between windows), with
     per-template window slack;
+  * sampling: each request's temperature (None = the engine default) and
+    seed go to the executor at admission, and each step tells it whether
+    any occupied slot samples (else it runs the greedy-only step);
   * per-request latency accounting (queue wait, TTFT, inter-commit
     percentiles) and per-step wall time.
 
@@ -51,6 +54,14 @@ class Request:
     def tree_idx(self) -> Optional[int]:
         return self.params.tree_idx
 
+    @property
+    def temperature(self) -> Optional[float]:
+        return self.params.temperature    # None = the engine default
+
+    @property
+    def seed(self) -> Optional[int]:
+        return self.params.seed           # None = (engine seed, rid) stream
+
 
 @dataclasses.dataclass
 class Completion:
@@ -84,6 +95,7 @@ class _Slot:
     pf_len: int
     submit_t: float
     admit_t: float
+    temperature: float = 0.0    # resolved at admission
     tree: int = 0               # bank template in use
     steps: int = 0              # live steps so far
     first_t: float = float("nan")
@@ -171,11 +183,13 @@ class TreeController:
 class Scheduler:
     """Queue, admission and accounting over one Executor. ``alloc`` is
     None in the contiguous layout; ``bank`` / ``ctrl`` are set for tree
-    drafting (``ctrl`` only when adaptive)."""
+    drafting (``ctrl`` only when adaptive); ``temperature`` is the engine
+    default of requests that set none."""
 
     def __init__(self, dec: SpecDecoder, executor: Executor,
                  alloc: Optional[kv_pool.BlockAllocator], *, max_batch: int,
                  max_len: int, eos_id: Optional[int], admit_window: int,
+                 temperature: float = 0.0,
                  prefill_budget: Optional[int],
                  ctrl: Optional[TreeController] = None,
                  tree_reselect_every: int = 4):
@@ -184,6 +198,7 @@ class Scheduler:
         self.bank, self.ctrl = dec.tree, ctrl
         self.tree_reselect_every = tree_reselect_every
         self.max_len = max_len
+        self.temperature = temperature
         self.eos_id = eos_id
         self.admit_window = admit_window
         self.chunk = dec.chunk_width
@@ -197,24 +212,24 @@ class Scheduler:
         self._submit_t: Dict[int, float] = {}
         self.stats: Dict = dict(
             steps=0, committed=0, accepted=0, live_steps=0,
-            draft_forwards=0, target_forwards=0, prefill_steps=0,
-            prefill_chunks=0, prefill_tokens=0)
+            draft_forwards=0, target_forwards=0, round_hist=None,
+            prefill_steps=0, prefill_chunks=0, prefill_tokens=0)
         if self.bank is not None:
             self.stats["tree_hist"] = np.zeros(len(self.bank), np.int64)
             self.stats["tree_switches"] = 0
 
     # ------------------------------------------------------------- submit
     def submit(self, prompt, max_new: Optional[int] = None,
+               temperature: Optional[float] = None,
+               tree_idx: Optional[int] = None,
                params: Optional[SamplingParams] = None) -> int:
         if params is None:
-            params = SamplingParams(max_new=max_new)
-        elif max_new is not None and params.max_new not in (None, max_new):
-            raise ValueError(f"conflicting max_new: {max_new} vs "
-                             f"SamplingParams.max_new={params.max_new}")
-        elif max_new is not None:
-            params = dataclasses.replace(params, max_new=max_new)
-        if params.max_new is None:
-            raise ValueError("max_new is required")
+            params = SamplingParams(max_new=max_new, temperature=temperature,
+                                    tree_idx=tree_idx)
+        elif temperature is not None or tree_idx is not None:
+            raise ValueError("pass per-request options inside "
+                             "SamplingParams, not alongside it")
+        params = params.merged(max_new)
         prompt = np.asarray(prompt, np.int64)
         tree_idx = params.tree_idx
         if tree_idx is not None and (
@@ -299,12 +314,15 @@ class Scheduler:
         now = time.perf_counter()
         if self.paged:
             self.alloc.allocate(slot, need)
-        self.ex.admit_row(slot, req.prompt, tmpl)
+        temp = self.temperature if req.temperature is None \
+            else req.temperature
+        self.ex.admit_row(slot, req.prompt, tmpl, float(temp), req.rid,
+                          req.seed)
         self.slots[slot] = _Slot(req=req, limit=p + req.max_new, pf=0,
                                  pf_len=p - 1,
                                  submit_t=self._submit_t.pop(req.rid, now),
-                                 admit_t=now, tree=tmpl, last_t=now,
-                                 last_n=p)
+                                 admit_t=now, temperature=float(temp),
+                                 tree=tmpl, last_t=now, last_n=p)
         if self.ctrl is not None:
             self.ctrl.seed_slot(slot)
         return True
@@ -334,8 +352,10 @@ class Scheduler:
             tree_sel = np.asarray([0 if s is None else s.tree
                                    for s in self.slots], np.int64)
         any_prefilling = self.prefilling_count() > 0
+        any_sampled = any(s is not None and s.temperature > 0
+                          for s in self.slots)
         handle = self.ex.dispatch(any_prefilling=any_prefilling,
-                                  tree_sel=tree_sel)
+                                  tree_sel=tree_sel, any_sampled=any_sampled)
         self.stats["steps"] += 1
         self.stats["prefill_steps"] += any_prefilling
         self.stats["target_forwards"] += 1
@@ -356,6 +376,12 @@ class Scheduler:
             self.stats["accepted"] += int(res.a.sum())
             self.stats["live_steps"] += n_live
             self.stats["committed"] += int(res.a.sum()) + n_live
+            # accepts per sibling rank: a chain accepts at rank 0 only
+            rhist = (np.asarray([res.a.sum()], np.int64) if res.rank is None
+                     else np.bincount(res.rank[res.rank >= 0],
+                                      minlength=self.bank.max_branching))
+            old = self.stats["round_hist"]
+            self.stats["round_hist"] = rhist if old is None else old + rhist
         else:
             self.stats["committed"] += n_live
         if self.bank is not None:

@@ -128,9 +128,12 @@ def test_engine_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="vsd"), dict(tree=(2, 2), temperature=0.7),
-    dict(prefix_cache=True), dict(tp=2), dict(dp=2), dict(temperature=0.7)])
+    dict(mode="vsd", prefix_cache=True), dict(tree=(2, 2), tp=2),
+    dict(prefix_cache=True), dict(tp=2), dict(dp=2),
+    dict(temperature=0.7, dp=2)])
 def test_engine_config_outside_the_slice_raises(kw):
+    """The prefix cache and tp / dp > 1 still raise, with sampling and VSD
+    (in the slice since sampled serving was ported) or without."""
     with pytest.raises(NotImplementedError):
         EngineConfig(**kw)
 
@@ -156,11 +159,13 @@ def test_quantized_kv_configs_serve(jax_models, kw):
 
 
 def test_engine_config_validates():
-    for kw in (dict(mode="x"), dict(k=0), dict(kv_dtype="fp16")):
+    for kw in (dict(mode="x"), dict(k=0), dict(kv_dtype="fp16"),
+               dict(temperature=-0.5)):
         with pytest.raises(ValueError):
             EngineConfig(**kw)
-    with pytest.raises(NotImplementedError):
-        SamplingParams(max_new=4, temperature=0.5)
+    assert SamplingParams(max_new=4, temperature=0.5, seed=3).seed == 3
+    with pytest.raises(ValueError):
+        SamplingParams(max_new=4, temperature=-0.5)
 
 
 # ----------------------------------------------------------- step windows

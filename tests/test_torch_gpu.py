@@ -5,12 +5,15 @@ and the port, so it runs where JAX is not installed:
 
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_config
+from repro_torch.core import prng
 from repro_torch.core.spec_decode import TreeTemplate
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ssd
@@ -18,6 +21,7 @@ from repro_torch.kernels import tree_attention as ta
 from repro_torch.models import forward, init_params
 from repro_torch.models.attention import quantize_kv
 from repro_torch.serving import kv_pool
+from repro_torch.serving.config import SamplingParams
 from repro_torch.serving.engine import Engine, EngineConfig
 
 pytestmark = pytest.mark.gpu
@@ -1080,3 +1084,115 @@ def test_ssm_engines_on_card(cuda, name):
         for i in range(len(prompts)):
             np.testing.assert_array_equal(out[key][i],
                                           out["paged", "ar"][i])
+
+
+# ----------------------------------------------------------- sampled serving
+def test_cuda_keys_draw_the_cpu_bits(cuda):
+    """The threefry generator gives the same keys, bits and uniforms on the
+    card as on the CPU, and the same categorical samples."""
+    keys = prng.split(prng.key(7), 6)
+    on = keys.to(cuda)
+    assert torch.equal(prng.fold_in(on, 5).cpu(), prng.fold_in(keys, 5))
+    assert torch.equal(prng.split(on, 3).cpu(), prng.split(keys, 3))
+    assert torch.equal(prng.bits(on, (4, 33)).cpu(), prng.bits(keys, (4, 33)))
+    for minval in (0.0, float(torch.finfo(torch.float32).tiny)):
+        assert torch.equal(prng.uniform(on, (100,), minval=minval).cpu(),
+                           prng.uniform(keys, (100,), minval=minval))
+    logits = torch.randn(6, 3, 1000, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(prng.categorical(on, logits.to(cuda)).cpu(),
+                       prng.categorical(keys, logits))
+
+
+def _sampled_tiny_tokens(dev, params, **kw):
+    tc, tp, dc, dp = params
+    eng = Engine(tp, tc, dp, dc, config=EngineConfig(
+        k=4, max_batch=2, max_len=256, kv_block_size=16, kv_dtype="fp32",
+        temperature=0.8, seed=5, **kw), device=dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, size=n) for n in (7, 13, 20)]
+    specs = [SamplingParams(max_new=16, temperature=0.0),
+             SamplingParams(max_new=16), SamplingParams(max_new=16, seed=11)]
+    rids = {eng.submit(p, params=sp): i
+            for i, (p, sp) in enumerate(zip(prompts, specs))}
+    return {rids[c.rid]: c.tokens for c in eng.run()}
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="contiguous"),
+                                dict(tree=(2, 2, 1, 1)),
+                                dict(adaptive_tree=True), dict(mode="ar"),
+                                dict(mode="vsd")])
+def test_sampled_engine_on_card_equals_cpu(cuda, kw):
+    """At T = 0.8 a tiny fp32 engine on the card commits the CPU engine's
+    tokens request by request: the keys draw the same bits on both."""
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    cpu = (tc, init_params(tc, 0, "cpu", torch.float32),
+           dc, init_params(dc, 1, "cpu", torch.float32))
+    card = (tc, _tree_to(cpu[1], cuda), dc, _tree_to(cpu[3], cuda))
+    want = _sampled_tiny_tokens("cpu", cpu, **kw)
+    got = _sampled_tiny_tokens(cuda, card, **kw)
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], want[i])
+
+
+def _clone(x):
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_clone(v) for v in x]
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tree=(2, 2, 1, 1)),
+                                dict(mode="vsd")])
+def test_sampled_step_replays_in_a_cuda_graph(cuda, kw):
+    """A sampled step (T = 0.8 rows beside a greedy row) captured in a CUDA
+    graph and replayed commits what the eager step commits, and leaves the
+    same keys and caches: the step reads no device value."""
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    tp = init_params(tc, 0, cuda, torch.float32)
+    dp = init_params(dc, 1, cuda, torch.float32)
+    eng = Engine(tp, tc, dp, dc, config=EngineConfig(
+        k=4, max_batch=3, max_len=128, kv_block_size=16, kv_dtype="fp32",
+        temperature=0.8, **kw), device=cuda)
+    rng = np.random.default_rng(2)
+    for i in range(3):
+        eng.submit(rng.integers(0, 512, size=6), 40,
+                   temperature=0.0 if i == 0 else None)
+    eng.sched.admit()
+    eng.ex.sync_tables(eng.alloc)
+    while eng.sched.prefilling_count():
+        eng.sched.step()                      # past prefill: all rows decode
+    step = eng.ex._step_fn("decode", greedy_only=False)
+    base = eng.ex.state
+    torch.cuda.synchronize()
+    eager = step(_clone(base))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(_clone(base))                    # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    captured_in = _clone(base)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = step(captured_in)
+    graph.replay()
+    torch.cuda.synchronize()
+    new_e, new_r = eager[0], replayed[0]
+    for name in ("gen", "n", "m", "rngs"):
+        assert torch.equal(getattr(new_r, name), getattr(new_e, name)), name
+    for a, b in zip(eager[1:], replayed[1:]):
+        assert torch.equal(a, b)
+    for a, b in zip(_leaves(new_e.tcache), _leaves(new_r.tcache)):
+        assert torch.equal(a, b)
+    assert not torch.equal(new_e.rngs, base.rngs)      # the keys advanced
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
