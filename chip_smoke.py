@@ -69,7 +69,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      on tiny-target / tiny-draft, VSD and AR on tiny-ssm): tokens equal to
      the CPU port's request by request, a bitwise repeat, greedy requests
      of the mixed batch equal to the all-greedy engine's, greedy VSD ==
-     greedy AR;
+     greedy AR; then the prefix cache on shared system prompts (warm ==
+     cold paged == contiguous == the CPU port's warm tokens, greedy and at
+     T = 0.8, 8 hit blocks) and the pipelined loop (pipelined == sync ==
+     the CPU port's pipelined tokens for flat PARD, the adaptive tree
+     (greedy), AR and VSD);
   6. engine at full width (llama3.1-8b target, llama3.2-1b draft, random
      bf16 weights from --seed, K=8, max_batch 4): paged PARD (the
      defaults), AR, the paged adaptive tree (default bank, 31-slot window),
@@ -78,10 +82,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kv_capacity and the share of tokens equal to the bf16 run's up to the
      first divergence), paged PARD and the paged adaptive tree at T = 1.0
      with 2 greedy requests of 8 (at most 64 new tokens), VSD greedy and
-     VSD at T = 1.0 (at most 32; K = 8 draft forwards a step), each sampled run
+     VSD at T = 1.0 (4 requests, at most 16; K = 8 draft forwards a step), each sampled run
      repeated bit for bit and its sampled step's device ops, launches and
      device time profiled beside the greedy-only step's on one engine
-     state; then mamba2-130m as target (--seed) and draft
+     state; paged PARD, the paged adaptive tree and paged PARD at T = 1.0
+     again with two steps in flight (``Engine.run(pipelined=True)``, its
+     admit / sync_tables / dispatch under ``set_sync_debug_mode("error")``):
+     tokens equal to the synchronous run's, at most one more step per
+     request, tok/s, step and host-overhead percentiles beside the
+     synchronous run's; paged PARD with the prefix cache on the launcher's
+     shared-prefix mix (2 requests per system prompt of --prompt-len
+     tokens, 8-token tails) beside the same prompts cold: tokens equal,
+     hit rate 0.5, one block of prefill saved per hit block, every block
+     back at the end, TTFT p50 / p95 of both; then mamba2-130m (6 of its
+     24 layers, for the time limit) as target (--seed) and draft
      (--seed + 1): paged PARD, contiguous PARD and paged AR; each asserts
      the exact launches of every kernel (one per attention layer per step;
      per Mamba2 layer one ssd_chunked per forward and one per state
@@ -124,6 +138,7 @@ and times under ``int8`` / ``fp8``) and the result line ``{"ok": true,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -172,6 +187,7 @@ TRAIN_SEQ = {"ar": 1024, "pard": 512}   # N per row; PARD packs 512 to T=1726
 TRAIN_LR = 1e-3
 COD = (8, 0.7, 0.2)                  # K, r, r_min of the PARD training cell
 SSM_MODEL = "mamba2-130m"            # the Mamba2 serving cell: target = draft
+SSM_LAYERS = 6                       # of its 24, for the time limit
 # a dense hybrid built in phase 5: attention every second layer, dense MLPs
 HYBRID = dict(name="hybrid-test", arch_type="hybrid", num_layers=4,
               attn_every=2, d_model=64, n_heads=2, n_kv_heads=1, head_dim=32,
@@ -1084,19 +1100,47 @@ def expected_launches(mode, tc, dc, cfg, steps, prefill_steps):
     return {k: v for k, v in want.items() if v}
 
 
+@contextlib.contextmanager
+def sync_errors(torch):
+    """Any CUDA call inside that makes the host wait for the device
+    raises (``torch.cuda.set_sync_debug_mode("error")``)."""
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+
+
+def guard_host_side(torch, eng):
+    """Run the engine's admit, sync_tables and dispatch under
+    ``sync_errors``: the host side of the pipelined loop must not wait for
+    the step in flight."""
+    for obj, name in ((eng.sched, "admit"), (eng.ex, "sync_tables"),
+                      (eng.sched, "dispatch")):
+        def guarded(*a, _fn=getattr(obj, name), **k):
+            with sync_errors(torch):
+                return _fn(*a, **k)
+        setattr(obj, name, guarded)
+
+
 def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
-          label, dev, greedy=0):
+          label, dev, greedy=0, pipelined=False):
     """One engine run through ``Engine.run``; the first ``greedy``
-    requests decode greedily whatever the engine's temperature."""
+    requests decode greedily whatever the engine's temperature. A
+    pipelined run on the card runs its host side under ``guard_host_side``.
+    Returns (tokens by request id, launches, the run's numbers)."""
     eng = Engine(tp, tc, dp, dc, config=cfg, device=dev)
     for i, p in enumerate(prompts):
         eng.submit(p, max_new, temperature=0.0 if i < greedy else None)
+    if pipelined and dev == "cuda":
+        guard_host_side(torch, eng)
     _sync(torch, dev)
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()                  # counts to 0 just before
     t0 = time.perf_counter()
-    comps = eng.run()
+    comps = eng.run(pipelined=pipelined)
     _sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)         # just after
@@ -1110,11 +1154,15 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
             f"switches={eng.stats['tree_switches']} bank={eng.bank.key}"
             if eng.bank is not None else "")
     log(f"[engine {label}] {len(comps)} requests ({greedy} greedy, "
-        f"T={cfg.temperature}), {gen} tokens in "
-        f"{wall:.2f}s = {gen / wall:.1f} tok/s; steps={steps} "
+        f"T={cfg.temperature}{', pipelined' if pipelined else ''}), {gen} "
+        f"tokens in {wall:.2f}s = {gen / wall:.1f} tok/s; steps={steps} "
         f"mean_accepted={eng.mean_accepted():.3f} "
         f"step_p50={lat['step_p50_ms']:.2f}ms "
         f"step_p95={lat['step_p95_ms']:.2f}ms "
+        f"host_overhead_p50={lat['host_overhead_p50_ms']:.3f}ms "
+        f"host_overhead_p95={lat['host_overhead_p95_ms']:.3f}ms "
+        f"ttft_p50={lat['ttft_p50_ms']:.0f}ms "
+        f"ttft_p95={lat['ttft_p95_ms']:.0f}ms "
         f"peak_mem={peak / 2**30:.2f}GiB "
         f"kv_capacity={eng.kv_capacity_bytes() / 2**20:.0f}MiB;{hist} "
         f"launches={launches} (expected {want})")
@@ -1128,7 +1176,10 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
     if dev == "cuda" and launches != want:
         raise SmokeFailure(f"engine {label}: launches {launches}, expected "
                            f"{want}")
-    return {c.rid: c.tokens for c in comps}, launches, eng.kv_capacity_bytes()
+    info = dict(capacity=eng.kv_capacity_bytes(), stats=dict(eng.stats),
+                lat=lat, tok_s=gen / wall, hit_rate=eng.prefix_hit_rate(),
+                in_use=None if eng.alloc is None else eng.alloc.blocks_in_use)
+    return {c.rid: c.tokens for c in comps}, launches, info
 
 
 def step_cost(torch, eng, any_sampled, steps=3):
@@ -1188,6 +1239,104 @@ def sampled_step_cost(torch, Engine, cfg, tp, tc, dp, dc, prompts, label):
     torch.cuda.empty_cache()
 
 
+PIPELINED = ("pard paged", "adaptive tree paged", "pard paged T=1.0")
+
+
+def loop_runs(torch, kernels, Engine, runs, tokens, infos, tp, tc, dp, dc,
+              prompts, args, dev):
+    """Phase 6 (b), (c): the ``PIPELINED`` runs again with two steps in
+    flight, their admit / sync_tables / dispatch under ``sync_errors``.
+    Tokens equal the synchronous run's request by request, the steps at
+    most one more per request, the launches per step as asserted in
+    ``serve``."""
+    import numpy as np
+    for label, cfg, _main, *opt in runs:
+        if label not in PIPELINED:
+            continue
+        opt = opt[0] if opt else {}
+        got, _, info = serve(torch, kernels, Engine, cfg, tp, tc, dp, dc,
+                             prompts, opt.get("max_new", args.max_new),
+                             f"{label} pipelined", dev,
+                             greedy=opt.get("greedy", 0), pipelined=True)
+        sync = infos[label]
+        same = all(np.array_equal(got[r], t) for r, t in tokens[label].items())
+        steps, base = info["stats"]["steps"], sync["stats"]["steps"]
+        log(f"[pipelined] {label}: sync vs pipelined tok/s "
+            f"{sync['tok_s']:.1f} vs {info['tok_s']:.1f}; step p50 / p95 "
+            f"{sync['lat']['step_p50_ms']:.2f} / "
+            f"{sync['lat']['step_p95_ms']:.2f} vs "
+            f"{info['lat']['step_p50_ms']:.2f} / "
+            f"{info['lat']['step_p95_ms']:.2f} ms; host overhead p50 / p95 "
+            f"{sync['lat']['host_overhead_p50_ms']:.3f} / "
+            f"{sync['lat']['host_overhead_p95_ms']:.3f} vs "
+            f"{info['lat']['host_overhead_p50_ms']:.3f} / "
+            f"{info['lat']['host_overhead_p95_ms']:.3f} ms; steps {base} vs "
+            f"{steps}; tokens identical: {same}; no host synchronization in "
+            f"admit / sync_tables / dispatch: "
+            f"{True if dev == 'cuda' else 'not checked off the card'}")
+        if not same:
+            raise SmokeFailure(f"pipelined {label}: tokens differ from the "
+                               f"synchronous run's")
+        if not base <= steps <= base + len(prompts):
+            raise SmokeFailure(f"pipelined {label}: {steps} steps against "
+                               f"{base} synchronous")
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+
+def prefix_runs(torch, kernels, Engine, EngineConfig, tp, tc, dp, dc, args,
+                dev):
+    """Phase 6 (a): paged PARD on the launcher's shared-prefix mix
+    (``--requests`` requests, 2 per system prompt of ``--prompt-len``
+    tokens, each with an 8-token tail), with the prefix cache and cold.
+    Every request's tokens equal the cold run's (at a fixed batch shape a
+    row's arithmetic does not depend on the other rows, and the shared
+    positions were prefilled in the same chunks); the second request of
+    each system prompt hits all its full system blocks; every block is
+    back at the end."""
+    import numpy as np
+    from repro_torch.launch.serve import workload
+    ns = argparse.Namespace(seed=args.seed, requests=args.requests,
+                            prompt_len=args.prompt_len, prefix_share=2)
+    prompts = workload(ns, tc.vocab_size)
+    got = {}
+    for label, cache in (("pard paged prefix cold", False),
+                         ("pard paged prefix warm", True)):
+        got[label] = serve(torch, kernels, Engine,
+                           EngineConfig(prefix_cache=cache), tp, tc, dp, dc,
+                           prompts, args.max_new, label, dev)
+    (cold, _, ci), (warm, _, wi) = got.values()
+    cfg = EngineConfig()
+    full = (args.prompt_len + 8 - 1) // cfg.kv_block_size
+    hits = len(prompts) // 2 * (args.prompt_len // cfg.kv_block_size)
+    saved = ci["stats"]["prefill_tokens"] - wi["stats"]["prefill_tokens"]
+    checks = {
+        "tokens == cold": all(np.array_equal(warm[r], t)
+                              for r, t in cold.items()),
+        f"hit blocks {wi['stats']['prefix_hit_blocks']} of "
+        f"{wi['stats']['prefix_lookup_blocks']} == {hits} of "
+        f"{full * len(prompts)}":
+            (wi["stats"]["prefix_hit_blocks"],
+             wi["stats"]["prefix_lookup_blocks"])
+            == (hits, full * len(prompts)),
+        f"prefill tokens saved {saved} == {hits * cfg.kv_block_size}":
+            saved == hits * cfg.kv_block_size,
+        "blocks in use at the end 0": wi["in_use"] == 0,
+    }
+    log(f"[prefix] hit rate {wi['hit_rate']:.3f}; TTFT p50 / p95 cold "
+        f"{ci['lat']['ttft_p50_ms']:.0f} / {ci['lat']['ttft_p95_ms']:.0f} "
+        f"ms, warm {wi['lat']['ttft_p50_ms']:.0f} / "
+        f"{wi['lat']['ttft_p95_ms']:.0f} ms; tok/s cold {ci['tok_s']:.1f} "
+        f"warm {wi['tok_s']:.1f}; prefill steps cold "
+        f"{ci['stats']['prefill_steps']} warm {wi['stats']['prefill_steps']}; "
+        + "; ".join(f"{k}: {v}" for k, v in checks.items()))
+    for k, v in checks.items():
+        if not v:
+            raise SmokeFailure(f"prefix cache: {k} fails")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
 def phase_engine(torch, kernels, args, target="llama3.1-8b",
                  draft="llama3.2-1b", dev="cuda"):
     import numpy as np
@@ -1213,9 +1362,10 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
     # fp8 route of tree_attention_paged, each beside its bf16 run; the
     # sampled runs at T = 1.0 with 2 greedy requests of 8, each repeated
     # (seeded: bitwise equal), at 64 new tokens, and VSD (K = 8 draft
-    # forwards a step) at 32, for the time limit
+    # forwards a step, its prefill most of the run) at 16 for 4 requests,
+    # for the time limit
     sampled = dict(greedy=2, repeat=True, max_new=min(args.max_new, 64))
-    vsd_new = min(args.max_new, 32)
+    vsd = dict(max_new=min(args.max_new, 16), requests=4)
     runs = [
         ("pard paged", EngineConfig(), "decode_attention_paged"),
         ("ar paged", EngineConfig(mode="ar"), None),
@@ -1234,13 +1384,13 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
         ("adaptive tree paged T=1.0", EngineConfig(adaptive_tree=True,
                                                    temperature=1.0), None,
          sampled),
-        ("vsd paged", EngineConfig(mode="vsd"), None, dict(max_new=vsd_new)),
+        ("vsd paged", EngineConfig(mode="vsd"), None, vsd),
         ("vsd paged T=1.0", EngineConfig(mode="vsd", temperature=1.0), None,
-         dict(sampled, max_new=vsd_new)),
+         dict(sampled, **vsd)),
     ]
     bf16_of = {"pard paged int8": "pard paged",
                "adaptive tree paged fp8": "adaptive tree paged"}
-    tokens, main_launches, capacity = {}, {}, {}
+    tokens, main_launches, capacity, infos = {}, {}, {}, {}
     for label, cfg, main, *opt in runs:
         opt = opt[0] if opt else {}
         # warm-up per configuration (library handles, allocator pools),
@@ -1251,15 +1401,17 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
         del warm
         d_p, d_c = (None, None) if cfg.mode == "ar" else (dp, dc)
         max_new = opt.get("max_new", args.max_new)
-        tokens[label], launches, capacity[label] = serve(
-            torch, kernels, Engine, cfg, tp, tc, d_p, d_c, prompts,
+        reqs = prompts[:opt.get("requests", len(prompts))]
+        tokens[label], launches, infos[label] = serve(
+            torch, kernels, Engine, cfg, tp, tc, d_p, d_c, reqs,
             max_new, label, dev, greedy=opt.get("greedy", 0))
+        capacity[label] = infos[label]["capacity"]
         if main is not None:
             kernel = main[0] if isinstance(main, tuple) else main
             main_launches[main] = launches.get(kernel, 0)
         if opt.get("repeat"):
             again, _, _ = serve(torch, kernels, Engine, cfg, tp, tc, d_p, d_c,
-                                prompts, max_new, f"{label} repeat", dev,
+                                reqs, max_new, f"{label} repeat", dev,
                                 greedy=opt["greedy"])
             same = all(np.array_equal(again[r], t)
                        for r, t in tokens[label].items())
@@ -1271,6 +1423,11 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
                               label)
         if dev == "cuda":
             torch.cuda.empty_cache()
+
+    loop_runs(torch, kernels, Engine, runs, tokens, infos, tp, tc, dp, dc,
+              prompts, args, dev)
+    prefix_runs(torch, kernels, Engine, EngineConfig, tp, tc, dp, dc, args,
+                dev)
 
     def first_divergence(label, base, rids=None):
         shares = []
@@ -1609,15 +1766,16 @@ SAMPLED_RUNS = {                     # label -> (model family, EngineConfig)
 }
 
 
-def _sampled_tokens(torch, models, prompts, dev, temperature, **kw):
+def _sampled_tokens(torch, models, prompts, dev, temperature,
+                    pipelined=False, max_batch=3, stats=None, **kw):
     """Tokens of a tiny fp32 engine at ``temperature``: request i % 3 == 0
     greedy, 1 on the engine's (seed, rid) stream, 2 with a seed of its
-    own."""
+    own. ``stats``, a dict, receives the engine's stats."""
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.config import SamplingParams
     tc, tp, dc, dp = models
     eng = Engine(tp, tc, dp, dc, config=EngineConfig(
-        max_batch=3, max_len=256, kv_block_size=16, kv_dtype="fp32",
+        max_batch=max_batch, max_len=256, kv_block_size=16, kv_dtype="fp32",
         temperature=temperature, seed=5, **kw), device=dev)
     rids = {}
     for i, p in enumerate(prompts):
@@ -1625,7 +1783,10 @@ def _sampled_tokens(torch, models, prompts, dev, temperature, **kw):
               SamplingParams(max_new=24),
               SamplingParams(max_new=24, seed=100 + i)][i % 3]
         rids[eng.submit(p, params=sp)] = i
-    return {rids[c.rid]: c.tokens for c in eng.run()}, eng.stats["accepted"]
+    toks = {rids[c.rid]: c.tokens for c in eng.run(pipelined=pipelined)}
+    if stats is not None:
+        stats.update(eng.stats)
+    return toks, eng.stats["accepted"]
 
 
 def phase_reference_sampled(torch, args, dev="cuda"):
@@ -1694,23 +1855,98 @@ def phase_reference_sampled(torch, args, dev="cuda"):
             raise SmokeFailure(f"greedy {vsd} tokens differ from {ar}")
 
 
+LOOP_RUNS = {                        # label -> (EngineConfig, temperature)
+    "pard paged": (dict(k=4), SAMPLED_T),
+    "adaptive tree paged": (dict(k=4, adaptive_tree=True), 0.0),
+    "ar paged": (dict(mode="ar", k=4), SAMPLED_T),
+    "vsd paged": (dict(mode="vsd", k=4), SAMPLED_T),
+}
+
+
+def phase_reference_loop(torch, args, dev="cuda"):
+    """tiny-target / tiny-draft in fp32 on the card: the prefix cache
+    (shared system prompts, max_batch 2: warm == cold paged == contiguous,
+    greedy and mixed sampled) and the pipelined loop (pipelined == sync
+    for flat PARD, the adaptive tree (greedy), AR and VSD, mixed sampled),
+    each also equal to the CPU port's tokens request by request."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    cpu = (tc, init_params(tc, args.seed, "cpu", torch.float32),
+           dc, init_params(dc, args.seed + 1, "cpu", torch.float32))
+    models = {"cpu": cpu, dev: (tc, _tree_to(cpu[1], dev), dc,
+                                _tree_to(cpu[3], dev))}
+    rng = np.random.default_rng(args.seed + 41)
+    systems = [rng.integers(0, 512, size=40) for _ in range(2)]
+    shared = [np.concatenate([systems[i % 2], rng.integers(0, 512, size=5)])
+              for i in range(6)]
+    for temp in (0.0, SAMPLED_T):
+        got, stats = {}, {}
+        for name, where, kw in (
+                ("contiguous", dev, dict(kv_layout="contiguous")),
+                ("cold", dev, dict()),
+                ("warm", dev, dict(prefix_cache=True)),
+                ("warm CPU", "cpu", dict(prefix_cache=True))):
+            stats[name] = {}
+            got[name], _ = _sampled_tokens(torch, models[where], shared, where,
+                                           temp, max_batch=2,
+                                           stats=stats[name], k=4, **kw)
+        hits = stats["warm"]["prefix_hit_blocks"]
+        same = {n: all(np.array_equal(got[n][i], got["warm"][i])
+                       for i in range(len(shared)))
+                for n in ("contiguous", "cold", "warm CPU")}
+        log(f"[reference prefix] T={temp} on the card: warm (hit blocks "
+            f"{hits} of {stats['warm']['prefix_lookup_blocks']}) == "
+            + "; ".join(f"{n}: {v}" for n, v in same.items()))
+        if not all(same.values()) or hits != 8 or \
+                stats["warm CPU"]["prefix_hit_blocks"] != hits:
+            raise SmokeFailure(f"prefix cache at T={temp}: {same}, {hits} "
+                               f"hit blocks (expected 8)")
+    prompts = [rng.integers(0, 512, size=int(n))
+               for n in rng.integers(4, 40, size=6)]
+    for label, (kw, temp) in LOOP_RUNS.items():
+        sync, _ = _sampled_tokens(torch, models[dev], prompts, dev, temp,
+                                  max_batch=2, **kw)
+        pipe, _ = _sampled_tokens(torch, models[dev], prompts, dev, temp,
+                                  pipelined=True, max_batch=2, **kw)
+        cpu_pipe, _ = _sampled_tokens(torch, cpu, prompts, "cpu", temp,
+                                      pipelined=True, max_batch=2, **kw)
+        checks = {
+            "pipelined == sync": all(np.array_equal(pipe[i], sync[i])
+                                     for i in range(len(prompts))),
+            "== CPU port": all(np.array_equal(pipe[i], cpu_pipe[i])
+                               for i in range(len(prompts))),
+        }
+        log(f"[reference pipelined] {label} T={temp} on the card: "
+            + "; ".join(f"{k}: {v}" for k, v in checks.items()))
+        for k, v in checks.items():
+            if not v:
+                raise SmokeFailure(f"pipelined {label}: {k} fails")
+
+
 def phase_ssm_engine(torch, kernels, args, dev="cuda"):
-    """mamba2-130m at full width as target (weights from --seed) and PARD
-    draft (--seed + 1), bf16, K=8, max_batch 4: paged PARD, contiguous
-    PARD and paged AR, each asserting its exact ssd_chunked launches."""
+    """mamba2-130m at full width, ``SSM_LAYERS`` of its layers deep, as
+    target (weights from --seed) and PARD draft (--seed + 1), bf16, K=8,
+    max_batch 4: paged PARD, contiguous PARD and paged AR, each asserting
+    its exact ssd_chunked launches."""
+    import dataclasses
+
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.training.optimizer import leaves
 
-    cfg = get_config(SSM_MODEL)
+    cfg = dataclasses.replace(get_config(SSM_MODEL), num_layers=SSM_LAYERS)
     t0 = time.perf_counter()
     tp = init_params(cfg, args.seed, dev, torch.bfloat16)
     dp = init_params(cfg, args.seed + 1, dev, torch.bfloat16)
     _sync(torch, dev)
     n_params = sum(t.numel() for t in leaves(tp))
-    log(f"[engine ssm] {SSM_MODEL} target + draft, random bf16 weights "
+    log(f"[engine ssm] {SSM_MODEL} ({SSM_LAYERS} of 24 layers) target + "
+        f"draft, random bf16 weights "
         f"({n_params / 1e6:.1f}M params each) on the card in "
         f"{time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(args.seed)
@@ -2246,22 +2482,29 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"[phase time] {fn.__name__}: {time.perf_counter() - t0:.1f}s")
+        return out
+
     try:
-        phase_build(build)
-        errs = phase_correctness(torch, args)
-        for name, err in phase_split_kv(torch, args).items():
+        timed(phase_build, build)
+        errs = timed(phase_correctness, torch, args)
+        for name, err in timed(phase_split_kv, torch, args).items():
             errs[name] = max(errs.get(name, 0.0), err)
-        errs.update(phase_ssd_correctness(torch, args))
-        timing = phase_timing(torch, F, args)
-        timing.update(phase_ssd_timing(torch, args))
-        phase_reference(torch, args)
-        phase_reference_ssm(torch, args)
-        phase_reference_sampled(torch, args)
-        launches = phase_engine(torch, kernels, args)
-        launches.update(phase_ssm_engine(torch, kernels, args))
-        errs.update(phase_train_correctness(torch, args))
-        timing.update(phase_train_timing(torch, F, args))
-        launches.update(phase_train(torch, kernels, args))
+        errs.update(timed(phase_ssd_correctness, torch, args))
+        timing = timed(phase_timing, torch, F, args)
+        timing.update(timed(phase_ssd_timing, torch, args))
+        timed(phase_reference, torch, args)
+        timed(phase_reference_ssm, torch, args)
+        timed(phase_reference_sampled, torch, args)
+        timed(phase_reference_loop, torch, args)
+        launches = timed(phase_engine, torch, kernels, args)
+        launches.update(timed(phase_ssm_engine, torch, kernels, args))
+        errs.update(timed(phase_train_correctness, torch, args))
+        timing.update(timed(phase_train_timing, torch, F, args))
+        launches.update(timed(phase_train, torch, kernels, args))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

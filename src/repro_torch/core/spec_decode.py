@@ -158,7 +158,7 @@ def _topk_indices(logits, k: int):
     return torch.stack(idx, dim=-1)
 
 
-def _has_ssm(cfg: ModelConfig) -> bool:
+def has_ssm(cfg: ModelConfig) -> bool:
     plan = scan_plan(cfg)
     return any(s.mixer == SSM for s in plan.prefix + plan.period)
 
@@ -457,12 +457,12 @@ class SpecDecoder:
         self.dp, self.dc = draft_params, draft_cfg
         if tree is not None:
             tree = as_bank(tree)
-            if _has_ssm(target_cfg):
+            if has_ssm(target_cfg):
                 raise NotImplementedError(
                     "tree verification relies on positional KV rollback; "
                     "an SSM/hybrid target cannot roll back a packed tree "
                     "window")
-            if draft_cfg is not None and _has_ssm(draft_cfg):
+            if draft_cfg is not None and has_ssm(draft_cfg):
                 raise NotImplementedError(
                     "tree drafting with an SSM/hybrid draft is not ported "
                     "yet")

@@ -12,9 +12,15 @@ pool; ``--kv-dtype int8`` / ``fp8`` stores quantized KV; ``--mode vsd``
 drafts with K AR forwards of the draft (vanilla speculative decoding).
 ``--temperature 0.8`` samples (seeded by ``--seed``), and
 ``--greedy-requests N`` keeps the first N requests greedy, so one batch
-mixes greedy and sampled rows. Prints throughput, mean accepted tokens per
-step and the temperature mix, latency percentiles, KV usage (scales
-included) and, with trees, the template histogram.
+mixes greedy and sampled rows. ``--prefix-cache`` reuses prompt KV across
+requests (paged only); ``--prefix-share N`` sends N requests per system
+prompt of ``--prompt-len`` tokens, each with an 8-token tail of its own,
+the groups round-robin, so later arrivals of a group hit what earlier ones
+prefilled. ``--pipelined`` dispatches step t + 1 before harvesting step t.
+Prints throughput, mean accepted tokens per step and the temperature mix,
+latency percentiles and the host overhead between a harvest and the next
+dispatch, KV usage (scales included), the prefix-cache hit rate and, with
+trees, the template histogram.
 """
 from __future__ import annotations
 
@@ -71,9 +77,40 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="TOKENS",
                     help="max prompt tokens consumed per step across "
                          "prefilling rows (default unthrottled)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="refcounted prompt-prefix reuse in the paged pool: "
+                         "same-prefix requests map cached blocks copy-free "
+                         "and prefill only their tail")
+    ap.add_argument("--prefix-share", type=int, default=1, metavar="N",
+                    help="requests per shared system prompt (each adds an "
+                         "8-token tail of its own); 1 = all prompts unique")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="two steps in flight: dispatch step t + 1 before "
+                         "harvesting step t (tokens unchanged)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain path")
     return ap
+
+
+def workload(args, vocab_size: int):
+    """The prompts of the run, from ``--seed``: all unique of
+    ``--prompt-len`` tokens, or with ``--prefix-share N`` > 1, N requests
+    per system prompt of ``--prompt-len`` tokens, each followed by an
+    8-token tail of its own, the groups taken round-robin (as the JAX
+    launcher's shared-prefix mix): same-prefix requests arrive in
+    different batch generations, since concurrent identical prefixes
+    cannot hit (a block matches only once computed)."""
+    import numpy as np
+    rng = np.random.default_rng(args.seed)
+    share = max(1, args.prefix_share)
+    if share == 1:
+        return [rng.integers(0, vocab_size, size=args.prompt_len)
+                for _ in range(args.requests)]
+    systems = [rng.integers(0, vocab_size, size=args.prompt_len)
+               for _ in range(-(-args.requests // share))]
+    return [np.concatenate([systems[i % len(systems)],
+                            rng.integers(0, vocab_size, size=8)])
+            for i in range(args.requests)]
 
 
 def main(argv=None):
@@ -99,14 +136,12 @@ def main(argv=None):
     eng = Engine(tp, tc, dp, dc, config=EngineConfig.from_args(args),
                  device=device)
 
-    rng = np.random.default_rng(args.seed)
-    for i in range(args.requests):
+    for i, prompt in enumerate(workload(args, tc.vocab_size)):
         # the first --greedy-requests decode greedily whatever the default
-        eng.submit(rng.integers(0, tc.vocab_size, size=args.prompt_len),
-                   args.max_new,
+        eng.submit(prompt, args.max_new,
                    temperature=0.0 if i < args.greedy_requests else None)
     t0 = time.perf_counter()
-    comps = eng.run()
+    comps = eng.run(pipelined=args.pipelined)
     wall = time.perf_counter() - t0
 
     total = sum(c.generated for c in comps)
@@ -121,12 +156,23 @@ def main(argv=None):
           f"{args.requests}")
     print(f"step_p50={lat['step_p50_ms']:.1f}ms "
           f"ttft_p50={lat['ttft_p50_ms']:.0f}ms "
+          f"ttft_p95={lat['ttft_p95_ms']:.0f}ms "
           f"tok_p50={lat['tok_p50_ms']:.1f}ms "
-          f"tok_p95={lat['tok_p95_ms']:.1f}ms")
+          f"tok_p95={lat['tok_p95_ms']:.1f}ms "
+          f"pipelined={args.pipelined} "
+          f"steps/s={eng.stats['steps'] / wall:.1f}")
+    print(f"host overhead (harvest->dispatch) "
+          f"p50={lat['host_overhead_p50_ms']:.2f}ms "
+          f"p95={lat['host_overhead_p95_ms']:.2f}ms")
     print(f"kv layout={args.kv_layout} dtype={args.kv_dtype} "
           f"capacity={eng.kv_capacity_bytes() / 1e6:.2f}MB "
           f"(scales {eng.ex.kv_scale_bytes / 1e6:.2f}MB) "
           f"peak_in_use={eng.peak_kv_bytes_in_use / 1e6:.2f}MB")
+    if args.prefix_cache:
+        print(f"prefix cache: hit_rate={eng.prefix_hit_rate():.2f} "
+              f"({eng.stats['prefix_hit_blocks']}/"
+              f"{eng.stats['prefix_lookup_blocks']} prompt blocks) "
+              f"prefill_tokens={eng.stats['prefill_tokens']}")
     if eng.bank is not None:
         print(f"tree bank={eng.bank.key} k={eng.k} "
               f"window={eng.bank.max_slots} "

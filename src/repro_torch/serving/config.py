@@ -2,7 +2,7 @@
 ``repro.serving.config``) with the JAX package's defaults.
 
 Settings outside the port's slices so far raise ``NotImplementedError``:
-the prefix cache and ``tp``/``dp`` > 1.
+``tp``/``dp`` > 1.
 """
 from __future__ import annotations
 
@@ -81,6 +81,7 @@ class EngineConfig:
     prefill_chunk: int = 8
     prefill_budget: Optional[int] = None
     admit_window: int = 8
+    pipelined: bool = False          # the default of Engine.run()
     tp: int = 1
     dp: int = 1
 
@@ -115,8 +116,8 @@ class EngineConfig:
         if not 0.0 < self.tree_ewma <= 1.0:
             raise ValueError(f"tree_ewma must be in (0, 1], "
                              f"got {self.tree_ewma}")
-        if self.prefix_cache:
-            _later("the prefix cache")
+        if self.prefix_cache and self.kv_layout != "paged":
+            raise ValueError("prefix_cache requires the paged KV layout")
         if self.tp > 1 or self.dp > 1:
             _later("multi-device serving (tp/dp > 1)")
 

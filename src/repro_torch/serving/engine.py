@@ -20,7 +20,17 @@ over the scheduler (host) and the executor (device).
     (or the engine seed and its request id), never on the batch;
   * tree drafting (``tree=`` a static template, ``adaptive_tree=True`` the
     default bank with per-request re-selection): the PARD draft fills a
-    candidate tree and one forward verifies it, still token-identical.
+    candidate tree and one forward verifies it, still token-identical;
+  * ``prefix_cache=True`` (paged only; attention-only models) reuses
+    prompt KV across requests: full prompt blocks register under
+    content keys, admission maps the longest computed block-aligned
+    prefix copy-free into the new row's table (target and draft keyed
+    together) and prefills only the tail; refcount-0 cached blocks are
+    evicted LRU;
+  * ``run(pipelined=True)`` / ``run_pipelined()`` dispatch step t + 1
+    before harvesting step t, so the host's scheduling between steps
+    overlaps the card's step (DESIGN.md §9); tokens equal the
+    synchronous loop's.
 
 The engine runs on the CUDA card unless ``device="cpu"`` is passed; the
 params must already live on that device (``models.init_params`` or
@@ -28,9 +38,10 @@ params must already live on that device (``models.init_params`` or
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Optional
 
-from ..core.spec_decode import SpecDecoder
+from ..core.spec_decode import SpecDecoder, has_ssm
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from . import kv_pool
@@ -61,6 +72,14 @@ class Engine:
             if where.type != self.device.type:
                 raise ValueError(f"{name} params are on {where}, the engine "
                                  f"runs on {self.device}")
+        if config.prefix_cache and any(
+                c is not None and has_ssm(c) for c in (target_cfg, draft_cfg)):
+            # a hit moves the prefill cursor past the cached blocks, but
+            # the recurrent state is per row and starts from zero: it
+            # would never see the cached tokens
+            raise ValueError(
+                "prefix_cache needs attention-only target and draft models: "
+                "a Mamba2 state is not cached with the KV blocks")
         self.paged = config.paged
         self.dec = SpecDecoder(
             target_params, target_cfg, draft_params, draft_cfg,
@@ -92,7 +111,8 @@ class Engine:
                                admit_window=config.admit_window,
                                prefill_budget=config.prefill_budget,
                                ctrl=self.ctrl,
-                               tree_reselect_every=config.tree_reselect_every)
+                               tree_reselect_every=config.tree_reselect_every,
+                               prefix_cache=config.prefix_cache)
         # contiguous rows are committed up front: their peak is the capacity
         self.peak_kv_bytes_in_use = 0 if self.paged else self.kv_capacity_bytes()
 
@@ -108,26 +128,53 @@ class Engine:
         return self.sched.submit(prompt, max_new, temperature, tree_idx,
                                  params=params)
 
-    def run(self, max_steps: int = 100000):
-        """Serve until every request completed (or ``max_steps`` steps)."""
+    def run(self, max_steps: int = 100000,
+            pipelined: Optional[bool] = None):
+        """Serve until every request completed (or ``max_steps`` steps).
+        ``pipelined=False`` processes each step right after dispatching it;
+        ``pipelined=True`` keeps two steps in flight, dispatching step t + 1
+        (with the mutations staged from step t - 1) before harvesting step
+        t. One loop serves both depths. ``None``: ``config.pipelined``."""
+        if pipelined is None:
+            pipelined = self.config.pipelined
         sched = self.sched
-        while sched.has_work() and sched.stats["steps"] < max_steps:
-            admitted = sched.admit()
-            if sched.queue and not admitted and not sched.has_live():
-                # every block is free and still nothing fits the head
-                req = sched.queue[0]
-                raise RuntimeError(
-                    f"request {req.rid} (prompt={len(req.prompt)}, "
-                    f"max_new={req.max_new}) needs more KV blocks than the "
-                    f"pool holds; raise kv_num_blocks or max_len")
-            self.ex.sync_tables(self.alloc)
-            self.peak_kv_bytes_in_use = max(self.peak_kv_bytes_in_use,
-                                            self.kv_bytes_in_use())
-            sched.step()
+        depth = 2 if pipelined else 1
+        inflight = deque()
+        sched._harvest_done_t = None       # no inter-run wall time
+        while sched.has_work() or inflight:
+            dispatched = False
+            if sched.has_work() and sched.stats["steps"] < max_steps:
+                admitted = sched.admit()
+                if sched.queue and not admitted and not inflight \
+                        and not sched.has_live():
+                    # every block is free, nothing in flight can free more,
+                    # and still nothing in the window fits
+                    req = sched.queue[0]
+                    raise RuntimeError(
+                        f"request {req.rid} (prompt={len(req.prompt)}, "
+                        f"max_new={req.max_new}) needs more KV blocks than "
+                        f"the pool holds; raise kv_num_blocks or max_len")
+                self.ex.sync_tables(self.alloc)
+                self.peak_kv_bytes_in_use = max(self.peak_kv_bytes_in_use,
+                                                self.kv_bytes_in_use())
+                if sched.has_live():
+                    inflight.append(sched.dispatch())
+                    dispatched = True
+            if inflight and (len(inflight) >= depth or not dispatched):
+                sched.process(inflight.popleft())
+            if not dispatched and not inflight:
+                break                  # step budget spent, fully drained
         return sched.completions
+
+    def run_pipelined(self, max_steps: int = 100000):
+        """``run`` with two steps in flight."""
+        return self.run(max_steps, pipelined=True)
 
     def mean_accepted(self) -> float:
         return self.sched.mean_accepted()
+
+    def prefix_hit_rate(self) -> float:
+        return self.sched.prefix_hit_rate()
 
     def latency_summary(self):
         return self.sched.latency_summary()
@@ -137,7 +184,8 @@ class Engine:
         return self.ex.kv_capacity
 
     def kv_bytes_in_use(self) -> int:
-        """KV bytes of the blocks live requests hold (contiguous: all)."""
+        """KV bytes of the blocks live requests hold, a block shared by
+        prefix-cache hits counted once (contiguous: all)."""
         if not self.paged:
             return self.kv_capacity_bytes()
         return self.alloc.blocks_in_use * self.ex.kv_per_block

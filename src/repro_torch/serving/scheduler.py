@@ -18,11 +18,28 @@ The ``Scheduler`` owns every decision that does not touch the device:
   * sampling: each request's temperature (None = the engine default) and
     seed go to the executor at admission, and each step tells it whether
     any occupied slot samples (else it runs the greedy-only step);
+  * prefix-cache admission (paged, ``prefix_cache=True``): the longest
+    computed block-aligned prefix of the prompt is mapped copy-free from
+    the allocator's content-keyed index and only the tail is prefilled
+    (the prefill cursor starts past the hit; a full hit takes no prefill
+    lane);
   * per-request latency accounting (queue wait, TTFT, inter-commit
-    percentiles) and per-step wall time.
+    percentiles), per-step wall time and the host overhead between a
+    harvest and the next dispatch.
 
-Each step is dispatched and processed back to back (the synchronous loop).
-Device work lives in ``serving.executor.Executor``.
+Stepping follows the executor's dispatch/harvest split (DESIGN.md §9).
+``dispatch()`` issues one step with every staged mutation (retirements
+from earlier harvests, template re-selections, commit limits) and at once
+advances what the dispatch alone decides: step counters, the prefill
+cursor mirrors and the computed flags of prefix-cached blocks (the chunk
+schedule depends only on the cursor). ``process(handle)`` harvests a step
+and folds in what depends on its results: acceptance statistics and the
+controller, where the slot still holds the request the step was
+dispatched for; completions cut from the step's own snapshot; block
+release; retirement, staged for the next dispatch. The synchronous loop
+(``step``) is dispatch followed at once by process; the pipelined one
+processes step t after dispatching step t + 1. Device work lives in
+``serving.executor.Executor``.
 """
 from __future__ import annotations
 
@@ -36,7 +53,7 @@ import numpy as np
 from ..core.spec_decode import SpecDecoder, TemplateBank
 from . import kv_pool
 from .config import SamplingParams
-from .executor import Executor, StepHandle
+from .executor import NO_LIMIT, Executor, StepHandle, StepResult
 
 
 @dataclasses.dataclass
@@ -184,7 +201,8 @@ class Scheduler:
     """Queue, admission and accounting over one Executor. ``alloc`` is
     None in the contiguous layout; ``bank`` / ``ctrl`` are set for tree
     drafting (``ctrl`` only when adaptive); ``temperature`` is the engine
-    default of requests that set none."""
+    default of requests that set none; ``prefix_cache`` (paged only)
+    matches and registers prompt blocks at admission."""
 
     def __init__(self, dec: SpecDecoder, executor: Executor,
                  alloc: Optional[kv_pool.BlockAllocator], *, max_batch: int,
@@ -192,8 +210,9 @@ class Scheduler:
                  temperature: float = 0.0,
                  prefill_budget: Optional[int],
                  ctrl: Optional[TreeController] = None,
-                 tree_reselect_every: int = 4):
+                 tree_reselect_every: int = 4, prefix_cache: bool = False):
         self.dec, self.ex, self.alloc = dec, executor, alloc
+        self.prefix_cache = prefix_cache and alloc is not None
         self.paged = alloc is not None
         self.bank, self.ctrl = dec.tree, ctrl
         self.tree_reselect_every = tree_reselect_every
@@ -208,12 +227,19 @@ class Scheduler:
         self.queue: deque = deque()
         self.completions: List[Completion] = []
         self.step_ms: List[float] = []
+        # per-step host overhead: harvest done -> next dispatch, ms
+        self.host_overhead_ms: List[float] = []
+        self._harvest_done_t: Optional[float] = None
+        self._last_harvest_t = 0.0
+        # retirements decided at process time, applied by the next dispatch
+        self.pending_retire = np.zeros(max_batch, bool)
         self._next_rid = 0
         self._submit_t: Dict[int, float] = {}
         self.stats: Dict = dict(
             steps=0, committed=0, accepted=0, live_steps=0,
             draft_forwards=0, target_forwards=0, round_hist=None,
-            prefill_steps=0, prefill_chunks=0, prefill_tokens=0)
+            prefill_steps=0, prefill_chunks=0, prefill_tokens=0,
+            prefix_lookup_blocks=0, prefix_hit_blocks=0)
         if self.bank is not None:
             self.stats["tree_hist"] = np.zeros(len(self.bank), np.int64)
             self.stats["tree_switches"] = 0
@@ -291,34 +317,56 @@ class Scheduler:
         return self.ctrl.select(feasible=feasible)
 
     def _try_admit(self, slot: int, req: Request) -> bool:
-        """Admit ``req`` into ``slot`` when its KV blocks (paged) and a
-        prefill lane exist right now; no side effects otherwise."""
+        """Admit ``req`` into ``slot`` when its KV blocks (paged, after
+        prefix matching) and a prefill lane exist right now; no side
+        effects otherwise."""
         p = len(req.prompt)
         tmpl = self._pick_template(req)
         need = p + req.max_new + self._slack(tmpl)
+        keys: List[bytes] = []
+        hit: List[int] = []
         if self.paged:
+            if self.prefix_cache:
+                keys = kv_pool.prefix_block_keys(
+                    req.prompt, self.alloc.block_size, self.ex.kv_dtype)
+                hit = self.alloc.match_prefix(keys)
             nb = self.alloc.blocks_needed(need)
-            if not self.alloc.can_allocate(nb) and self.bank is not None \
-                    and req.tree_idx is None:
+            if not self.alloc.can_allocate(nb - len(hit), hit) \
+                    and self.bank is not None and req.tree_idx is None:
                 # the pick outgrows the pool: serve on the narrowest
                 # feasible template (reshaping may widen it later)
                 tmpl = min(self._feasible_templates(req),
                            key=self.dec.row_slack)
                 need = p + req.max_new + self._slack(tmpl)
                 nb = self.alloc.blocks_needed(need)
-            if not self.alloc.can_allocate(nb):
+            if not self.alloc.can_allocate(nb - len(hit), hit):
                 return False                       # memory backpressure
-        if self.prefill_lanes is not None \
+        pf_start = len(hit) * self.alloc.block_size if self.paged else 0
+        if pf_start < p - 1 and self.prefill_lanes is not None \
                 and self.prefilling_count() >= self.prefill_lanes:
             return False                           # prefill budget exhausted
         now = time.perf_counter()
         if self.paged:
-            self.alloc.allocate(slot, need)
+            self.alloc.allocate(slot, need, prefix=hit, keys=keys)
+            self.stats["prefix_lookup_blocks"] += len(keys)
+            self.stats["prefix_hit_blocks"] += len(hit)
+            # defensive copy-on-write (kv_pool I2): with block-aligned
+            # matching the first written position lies past the shared
+            # prefix, so this maps nothing today
+            first_write = min(pf_start, p - 1) // self.alloc.block_size
+            for i in sorted(self.alloc.read_only.get(slot, ())):
+                if i >= first_write:
+                    pair = self.alloc.copy_on_write(slot, i)
+                    if pair is not None:
+                        self.ex.copy_block(*pair)
         temp = self.temperature if req.temperature is None \
             else req.temperature
         self.ex.admit_row(slot, req.prompt, tmpl, float(temp), req.rid,
-                          req.seed)
-        self.slots[slot] = _Slot(req=req, limit=p + req.max_new, pf=0,
+                          req.seed, pf_start=pf_start)
+        # admission re-arms the whole row, so a retirement still staged
+        # for the slot's previous request must not reach the next dispatch
+        self.pending_retire[slot] = False
+        self.slots[slot] = _Slot(req=req, limit=p + req.max_new, pf=pf_start,
                                  pf_len=p - 1,
                                  submit_t=self._submit_t.pop(req.rid, now),
                                  admit_t=now, temperature=float(temp),
@@ -344,33 +392,69 @@ class Scheduler:
         return admitted
 
     # ----------------------------------------------------------- stepping
-    def step(self) -> None:
-        """Dispatch one step and fold its results in."""
-        t0 = time.perf_counter()
+    def dispatch(self) -> StepHandle:
+        """Issue one step with the staged mutations (retirements, the
+        slots' templates, commit limits: a row that filled its budget in a
+        step not yet harvested freezes itself) and advance what the
+        dispatch alone decides: step counters, prefill cursor mirrors and
+        computed blocks (readable by any later step, by stream order)."""
+        now = time.perf_counter()
+        if self._harvest_done_t is not None:
+            self.host_overhead_ms.append((now - self._harvest_done_t) * 1e3)
+            self._harvest_done_t = None
         tree_sel = None
         if self.bank is not None:
             tree_sel = np.asarray([0 if s is None else s.tree
                                    for s in self.slots], np.int64)
+        limits = np.asarray([NO_LIMIT if s is None else s.limit
+                             for s in self.slots], np.int64)
         any_prefilling = self.prefilling_count() > 0
+        # retired rows' temperatures are zeroed by this dispatch before the
+        # step, so the occupied slots are exactly the rows that may sample
         any_sampled = any(s is not None and s.temperature > 0
                           for s in self.slots)
-        handle = self.ex.dispatch(any_prefilling=any_prefilling,
-                                  tree_sel=tree_sel, any_sampled=any_sampled)
+        handle = self.ex.dispatch(retire=self.pending_retire,
+                                  tree_sel=tree_sel, limits=limits,
+                                  any_prefilling=any_prefilling,
+                                  any_sampled=any_sampled)
+        handle.rids = np.asarray([-1 if s is None else s.req.rid
+                                  for s in self.slots], np.int64)
+        self.pending_retire = np.zeros(len(self.slots), bool)
         self.stats["steps"] += 1
         self.stats["prefill_steps"] += any_prefilling
         self.stats["target_forwards"] += 1
         self.stats["draft_forwards"] += handle.n_draft
-        for s in self.slots:
+        for slot, s in enumerate(self.slots):
             if s is not None and s.pf < s.pf_len:
                 cl = min(self.chunk, s.pf_len - s.pf)
                 s.pf += cl
                 self.stats["prefill_chunks"] += 1
                 self.stats["prefill_tokens"] += cl
-        self._process(handle)
-        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                if self.prefix_cache:
+                    self.alloc.mark_computed(slot, s.pf)
+        return handle
 
-    def _process(self, handle: StepHandle) -> None:
+    def process(self, handle: StepHandle) -> None:
+        """Harvest one step and fold its results in."""
         res = self.ex.harvest(handle)
+        now = time.perf_counter()
+        self._harvest_done_t = now
+        # the wall time the step held the loop: from the later of its
+        # dispatch and the previous harvest (pipelined: harvest to harvest)
+        start = max(handle.t_dispatch, self._last_harvest_t)
+        self.step_ms.append((now - start) * 1e3)
+        self._last_harvest_t = now
+        self._note_results(handle, res)
+        self._harvest_completions(handle, res, now)
+
+    def step(self) -> None:
+        """One synchronous step: dispatch, then process at once."""
+        self.process(self.dispatch())
+
+    def _note_results(self, handle: StepHandle, res: StepResult) -> None:
+        """Acceptance statistics from the device's live mask (rows the step
+        committed for); per-slot accounting and the controller only where
+        the slot still holds the request the step was dispatched for."""
         n_live = int(res.live.sum())
         if res.a is not None:
             self.stats["accepted"] += int(res.a.sum())
@@ -384,17 +468,31 @@ class Scheduler:
             self.stats["round_hist"] = rhist if old is None else old + rhist
         else:
             self.stats["committed"] += n_live
-        if self.bank is not None:
-            # attribute to the templates the step was dispatched with
-            np.add.at(self.stats["tree_hist"], handle.tree_sel[res.live], 1)
-            for slot in np.nonzero(res.live)[0]:
-                self.slots[slot].steps += 1
-            if self.ctrl is not None and n_live:
-                self.ctrl.update(res.live, handle.tree_sel, res.a, res.rank)
-                self._reshape_slots(res.live)
-        now = time.perf_counter()
+        if self.bank is None:
+            return
+        # attribute to the templates the step was dispatched with
+        np.add.at(self.stats["tree_hist"], handle.tree_sel[res.live], 1)
+        cur = np.asarray([-1 if s is None else s.req.rid
+                          for s in self.slots], np.int64)
+        acct = res.live & (handle.rids == cur)
+        for slot in np.nonzero(acct)[0]:
+            self.slots[slot].steps += 1
+        if self.ctrl is not None and acct.any():
+            self.ctrl.update(acct, handle.tree_sel, res.a, res.rank)
+            self._reshape_slots(acct)
+
+    def _harvest_completions(self, handle: StepHandle, res: StepResult,
+                             now: float) -> None:
+        """Completions (EOS or max_new) from the step's own snapshot, so
+        what a later step in flight speculates for the slot never reaches
+        the output. The slot frees at once: its blocks return to the
+        allocator (a step in flight writes a released row only past its
+        prompt, and a later step that reuses the blocks runs after it) and
+        its retirement is staged for the next dispatch."""
         for slot, s in enumerate(self.slots):
-            if s is None:
+            if s is None or int(handle.rids[slot]) != s.req.rid:
+                # empty, or re-admitted while the step was in flight: the
+                # snapshot belongs to the slot's previous request
                 continue
             n = int(res.n[slot])
             c = n - s.last_n
@@ -422,7 +520,7 @@ class Scheduler:
                     tok_p50=_weighted_percentile(s.samples, 50),
                     tok_p95=_weighted_percentile(s.samples, 95)))
                 self.slots[slot] = None
-                self.ex.retire_row(slot)
+                self.pending_retire[slot] = True
                 if self.ctrl is not None:
                     self.ctrl.retire_slot(slot)
                 if self.paged:
@@ -458,8 +556,16 @@ class Scheduler:
             return 0.0
         return 1.0 + self.stats["accepted"] / self.stats["live_steps"]
 
+    def prefix_hit_rate(self) -> float:
+        """Share of looked-up prompt blocks served from the prefix cache
+        (0.0 when caching is off or nothing was looked up)."""
+        lookups = self.stats["prefix_lookup_blocks"]
+        return self.stats["prefix_hit_blocks"] / lookups if lookups else 0.0
+
     def latency_summary(self) -> Dict[str, float]:
-        """Percentiles over completions and steps, in milliseconds."""
+        """Percentiles over completions and steps, in milliseconds, with
+        the host overhead between a harvest and the next dispatch (the
+        host time the pipelined loop hides)."""
         comps = self.completions
 
         def pct(vals, q):
@@ -475,4 +581,6 @@ class Scheduler:
             tok_p95_ms=_weighted_percentile(
                 [(c.tok_p95, max(1, c.generated)) for c in comps], 95) * 1e3,
             step_p50_ms=pct(self.step_ms, 50),
-            step_p95_ms=pct(self.step_ms, 95))
+            step_p95_ms=pct(self.step_ms, 95),
+            host_overhead_p50_ms=pct(self.host_overhead_ms, 50),
+            host_overhead_p95_ms=pct(self.host_overhead_ms, 95))

@@ -128,12 +128,12 @@ def test_engine_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="vsd", prefix_cache=True), dict(tree=(2, 2), tp=2),
-    dict(prefix_cache=True), dict(tp=2), dict(dp=2),
+    dict(mode="vsd", tp=2), dict(tree=(2, 2), tp=2),
+    dict(prefix_cache=True, dp=2), dict(tp=2), dict(dp=2),
     dict(temperature=0.7, dp=2)])
 def test_engine_config_outside_the_slice_raises(kw):
-    """The prefix cache and tp / dp > 1 still raise, with sampling and VSD
-    (in the slice since sampled serving was ported) or without."""
+    """tp / dp > 1 still raise, with sampling, VSD, trees or the prefix
+    cache (all in the port's slices) or without."""
     with pytest.raises(NotImplementedError):
         EngineConfig(**kw)
 

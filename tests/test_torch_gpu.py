@@ -5,6 +5,7 @@ and the port, so it runs where JAX is not installed:
 
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -23,6 +24,7 @@ from repro_torch.models.attention import quantize_kv
 from repro_torch.serving import kv_pool
 from repro_torch.serving.config import SamplingParams
 from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.executor import HostStaging
 
 pytestmark = pytest.mark.gpu
 
@@ -1196,3 +1198,198 @@ def _leaves(tree):
     if isinstance(tree, list):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# prefix cache and the pipelined loop on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _sync_errors():
+    """Any CUDA call that makes the host wait for the device raises."""
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+
+
+def _guard_host_side(eng):
+    """Run the engine's admit, sync_tables and dispatch under
+    ``_sync_errors``."""
+    for obj, name in ((eng.sched, "admit"), (eng.ex, "sync_tables"),
+                      (eng.sched, "dispatch")):
+        def guarded(*a, _fn=getattr(obj, name), **k):
+            with _sync_errors():
+                return _fn(*a, **k)
+        setattr(obj, name, guarded)
+
+
+def _tiny_models(dev):
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    return (tc, _tree_to(init_params(tc, 0, "cpu", torch.float32), dev),
+            dc, _tree_to(init_params(dc, 1, "cpu", torch.float32), dev))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_copy_block_copies_every_leaf(cuda, kv_dtype):
+    """copy_block copies one block of every attention leaf of both pools,
+    8-bit codes and their f32 scales, bit for bit, and leaves every other
+    block unchanged."""
+    tc, tp, dc, dp = _tiny_models(cuda)
+    eng = Engine(tp, tc, dp, dc, config=EngineConfig(
+        k=4, max_batch=2, max_len=128, kv_block_size=16, kv_dtype=kv_dtype,
+        prefix_cache=True), device=cuda)
+    leaves = [leaf for caches in (eng.ex.state.tcache, eng.ex.state.dcache)
+              for entry in caches["scan"] for leaf in entry.values()]
+    assert len(leaves) == (2 if kv_dtype == "bf16" else 4) * 2
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for leaf in leaves:
+        raw = da.as_bytes(leaf)
+        vals = (torch.randn(raw.shape, generator=g) if raw.is_floating_point()
+                else torch.randint(-100, 100, raw.shape, generator=g))
+        raw.copy_(vals.to(raw.dtype))
+    before = [da.as_bytes(leaf).clone() for leaf in leaves]
+    eng.ex.copy_block(3, 7)
+    torch.cuda.synchronize()
+    for leaf, old in zip(leaves, before):
+        new = da.as_bytes(leaf)
+        assert torch.equal(new[:, 7], old[:, 3])
+        keep = [i for i in range(new.shape[1]) if i != 7]
+        assert torch.equal(new[:, keep], old[:, keep])
+
+
+def test_pinned_staging_waits_for_its_copy(cuda):
+    """A staging buffer whose copy is still queued behind a busy stream is
+    not rewritten: the next upload takes another buffer, and a buffer is
+    reused once its copy completed. A download buffer returns to the pool
+    only when given back."""
+    st = HostStaging()
+    a = torch.zeros(4096, dtype=torch.int64, device=cuda)
+    b = torch.zeros_like(a)
+    torch.cuda._sleep(int(2e8))               # keep the stream busy
+    st.upload(a, np.full(4096, 1, np.int64))
+    st.upload(b, np.full(4096, 2, np.int64))  # the first copy is queued
+    ring = st._rings[((4096,), np.dtype(np.int64).str)]
+    assert len(ring) == 2
+    torch.cuda.synchronize()
+    assert bool((a == 1).all()) and bool((b == 2).all())
+    st.upload(a, np.full(4096, 3, np.int64))
+    assert len(ring) == 2                     # both copies done: reused
+    buf1, ev1 = st.download(a)
+    buf2, ev2 = st.download(b)
+    assert buf1.data_ptr() != buf2.data_ptr() and buf1.is_pinned()
+    ev1.synchronize()
+    ev2.synchronize()
+    assert int(buf1[0]) == 3 and int(buf2[0]) == 2
+    st.give_back(buf1)
+    buf3, ev3 = st.download(b)
+    assert buf3.data_ptr() == buf1.data_ptr()
+    ev3.synchronize()
+
+
+def test_sync_guard_catches_a_host_sync(cuda):
+    """The guard the pipelined tests rely on raises on a synchronizing
+    call, so a clean run under it means something."""
+    x = torch.ones(3, device=cuda)
+    with pytest.raises(RuntimeError):
+        with _sync_errors():
+            x.sum().item()
+
+
+def _pipelined_tokens(dev, models, pipelined, guard=False, **kw):
+    tc, tp, dc, dp = models
+    cfg = dict(k=4, max_batch=2, max_len=256, kv_block_size=16,
+               kv_dtype="fp32", temperature=0.8, seed=5)
+    cfg.update(kw)
+    eng = Engine(tp, tc, dp, dc, config=EngineConfig(**cfg), device=dev)
+    rng = np.random.default_rng(9)
+    for i, n in enumerate((7, 13, 20, 9, 30)):
+        eng.submit(rng.integers(0, 512, size=n), 10 + 3 * (i % 2),
+                   temperature=0.0 if i % 2 == 0 else None)
+    if guard:
+        _guard_host_side(eng)
+    return {c.rid: c.tokens for c in eng.run(pipelined=pipelined)}, eng
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="contiguous"),
+                                dict(adaptive_tree=True, temperature=0.0),
+                                dict(tree=(2, 2, 1, 1)), dict(mode="ar"),
+                                dict(mode="vsd"), dict(prefix_cache=True),
+                                dict(kv_dtype="int8")])
+def test_pipelined_equals_sync_on_card(cuda, kw):
+    """A tiny engine on the card, greedy and sampled rows, 5 requests
+    through 2 slots: the pipelined loop commits the synchronous loop's
+    tokens request by request, and its admit / sync_tables / dispatch
+    make no host-device synchronization."""
+    models = _tiny_models(cuda)
+    sync, _ = _pipelined_tokens(cuda, models, False, **kw)
+    pipe, eng = _pipelined_tokens(cuda, models, True, guard=True, **kw)
+    assert sorted(sync) == sorted(pipe) == list(range(5))
+    for rid in sync:
+        np.testing.assert_array_equal(pipe[rid], sync[rid])
+    assert len(eng.sched.host_overhead_ms) >= eng.stats["steps"] - 2
+
+
+def test_prefix_cache_warm_equals_cold_on_card(cuda):
+    """Shared system prompts: warm (hits) == cold, the hits as expected,
+    every block back at the end."""
+    models = _tiny_models(cuda)
+    rng = np.random.default_rng(4)
+    system = rng.integers(0, 512, size=40)
+    prompts = [np.concatenate([system, rng.integers(0, 512, size=5)])
+               for _ in range(4)]
+    got = {}
+    for cache in (False, True):
+        tc, tp, dc, dp = models
+        eng = Engine(tp, tc, dp, dc, config=EngineConfig(
+            k=4, max_batch=2, max_len=256, kv_block_size=16,
+            kv_dtype="fp32", prefix_cache=cache), device=cuda)
+        for p in prompts:
+            eng.submit(p, 12)
+        got[cache] = {c.rid: c.tokens for c in eng.run()}
+        if cache:
+            assert eng.stats["prefix_hit_blocks"] == 2 * 2
+            assert eng.alloc.blocks_in_use == 0
+    for rid in got[False]:
+        np.testing.assert_array_equal(got[True][rid], got[False][rid])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tree=(2, 2, 1))])
+def test_handle_survives_next_dispatch_and_admission_on_card(cuda, kw):
+    """Dispatch step t, admit into a free slot, dispatch step t + 1, then
+    harvest step t: the result equals the synchronous step t bit for bit
+    (the handle's snapshot is taken before the admission's in-place
+    writes and the next step)."""
+    tc, tp, dc, dp = _tiny_models(cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, size=n) for n in (9, 14, 6)]
+
+    def start():
+        eng = Engine(tp, tc, dp, dc, config=EngineConfig(
+            k=4, max_batch=3, max_len=128, kv_block_size=16,
+            kv_dtype="fp32", **kw), device=cuda)
+        for p in prompts[:2]:
+            eng.submit(p, 10)
+        eng.sched.admit()
+        eng.ex.sync_tables(eng.alloc)
+        for _ in range(3):
+            eng.sched.step()
+        return eng
+
+    ref = start()
+    want = ref.ex.harvest(ref.sched.dispatch())
+    eng = start()
+    handle = eng.sched.dispatch()
+    eng.submit(prompts[2], 10)
+    assert eng.sched.admit() == 1
+    eng.ex.sync_tables(eng.alloc)
+    later = eng.sched.dispatch()
+    got = eng.ex.harvest(handle)
+    for name in ("a", "rank", "live", "n", "gen"):
+        u, v = getattr(got, name), getattr(want, name)
+        assert (u is None) == (v is None)
+        if u is not None:
+            np.testing.assert_array_equal(u, v, err_msg=name)
+    assert got.n[2] == 2 and eng.ex.harvest(later).n[2] == len(prompts[2])
