@@ -127,13 +127,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      steps (B=4, N=512 packed to T=1726) through ``Trainer.fit``, each
      asserting one forward and one backward launch per layer per step and
      a finite, falling loss; then one more ``Trainer.step`` cut into
-     forward + loss, backward and AdamW by its CUDA events.
+     forward + loss, backward and AdamW by its CUDA events;
+ 10. the uniform-batch path (run after phase 6): decode_attention at
+     whole-prompt prefill windows (Tq = --prompt-len - 1 = 255 rows, G = 4,
+     D 128 and 64, bf16 and fp32; kv_len at the window's end, past it and
+     past S, and the window at the end of a longer context) against its
+     plain version, each repeated bit for bit; tiny-target / tiny-draft
+     fp32 ``generate_ar``, ``generate_spec`` (pard, vsd, a (2,2,1) tree)
+     and ``EagleDecoder`` tokens on the card equal to the CPU port's and
+     to AR; llama3.1-8b / llama3.2-1b bf16 at batch 1, one --prompt-len
+     prompt and 64 new tokens, through AR, VSD, flat PARD (K = 8), the
+     PARD tree (2,2,1,1,1,1,1,1) and EAGLE (K = 4, a random head on
+     llama3.1-8b), each asserting its exact decode_attention /
+     tree_attention launches and printing tok/s, iterations, forwards,
+     mean accepted and the share of tokens equal to AR's; and one
+     ``eagle_loss`` forward and backward on llama3.1-8b (B = 1, T =
+     --prompt-len, bf16) through the kernels and through the plain
+     versions (loss and head gradient norms within 2e-2, one backward
+     launch: the head's).
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers (a serving-attention kernel's row also lists every timing row of
 phase 4 under ``timings``, and its int8 and fp8 routes' error, launches
-and times under ``int8`` / ``fp8``) and the result line ``{"ok": true,
-"device": {...}}``.
+and times under ``int8`` / ``fp8``; every row lists its launches in each
+run of phase 10 under ``generate_launches``) and the result line ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -911,6 +929,13 @@ def timing_rows(torch, args):
          dict(draft, tq=16, ctx=[c - 9 for c in ctx], **contig)),
         ("decode_attention", "target verify @ctx 1k-4k",
          dict(target, tq=9, ctx=[1024, 2048, 3072, 4096], s=4096)),
+        # generate_*'s whole-prompt prefill at batch 1: Tq = P - 1 rows
+        ("decode_attention", f"target prefill Tq={args.prompt_len - 1} b=1",
+         dict(target, b=1, tq=args.prompt_len - 1,
+              ctx=[args.prompt_len - 1], s=args.prompt_len + 128)),
+        ("decode_attention", f"draft prefill D=64 Tq={args.prompt_len - 1} "
+         f"b=1", dict(draft, b=1, tq=args.prompt_len - 1,
+                      ctx=[args.prompt_len - 1], s=args.prompt_len + 128)),
         ("tree_attention", "tree verify 31 slots @engine ctx",
          dict(target, tq=31, ctx=ctx, template=WIDE, **contig)),
         ("tree_attention", "tree verify 31 slots @ctx 1k-4k",
@@ -1981,6 +2006,274 @@ def phase_ssm_engine(torch, kernels, args, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# the uniform-batch generate_* path and the EAGLE baseline
+# ---------------------------------------------------------------------------
+
+GEN_TARGET, GEN_DRAFT = "llama3.1-8b", "llama3.2-1b"
+GEN_K = 8                            # PARD / VSD draft depth at full width
+EAGLE_K = 4                          # EAGLE head passes per iteration
+GEN_MAX_NEW = 64                     # new tokens of each batch-1 run
+PREFILL_HEADS = {"llama3.1-8b": dict(hq=32, hkv=8, d=128),
+                 "llama3.2-1b": dict(hq=32, hkv=8, d=64)}
+
+
+def phase_prefill_windows(torch, args, dev="cuda"):
+    """decode_attention at whole-prompt prefill windows: Tq = P - 1 = 255
+    rows from position 0 with G = 4 (1020 query rows, 8 row tiles of 128
+    in ``split_kv_plan``), at the head dims of llama3.1-8b (128) and
+    llama3.2-1b (64), bf16 and fp32; kv_len equal to the window's end, past
+    it and past S (keys the causal mask hides), and a 255-row window at the
+    end of a longer context. Each against the plain version, and a second
+    call bitwise equal. Returns the worst error."""
+    import numpy as np
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    rng = np.random.default_rng(args.seed + 31)
+    tq, worst = args.prompt_len - 1, 0.0
+    for model, heads in PREFILL_HEADS.items():
+        for dt in (torch.bfloat16, torch.float32):
+            shapes = (
+                ("kv_len at the window's end", dict(ctx=[tq, tq],
+                                                    s=tq + 1), None),
+                ("kv_len past the window and past S",
+                 dict(ctx=[tq + 45, tq + 45], s=tq + 1), tq + 45),
+                ("the window at the end of ctx 600 / 1000",
+                 dict(ctx=[600, 1000], s=1024), None))
+            for label, kw, past in shapes:
+                case = make_case(torch, gen, rng, "contig", b=2, tq=tq,
+                                 kv_dtype=dt, q_dtype=dt, dev=dev, **heads,
+                                 **kw)
+                if past is not None:      # queries at 0 .. tq - 1 again
+                    case["q_pos"] = (torch.arange(tq, device=dev)[None]
+                                     .expand(2, tq).to(torch.int32)
+                                     .contiguous())
+                out, again = (da.decode_attention(**case) for _ in range(2))
+                _sync(torch, dev)
+                want = oracle(da.decode_attention_ref, case)
+                if not torch.isfinite(out).all():
+                    raise SmokeFailure(f"decode_attention prefill window "
+                                       f"output not finite ({label})")
+                err = (out.float() - want.float()).abs().max().item()
+                tol = TOL[str(dt).split(".")[1]]
+                same = torch.equal(out, again)
+                log(f"[prefill window] decode_attention Tq={tq} G=4 "
+                    f"D={heads['d']} ({model}) {str(dt)[6:]} {label}: "
+                    f"max_abs_err={err:.3e} tol={tol:g}; a second call "
+                    f"bitwise equal: {same}")
+                if not err <= tol:
+                    raise SmokeFailure(f"decode_attention disagrees with its "
+                                       f"plain version at a {tq}-row prefill "
+                                       f"window ({model}, {dt}, {label}): "
+                                       f"{err} > {tol}")
+                if not same:
+                    raise SmokeFailure(f"decode_attention prefill window "
+                                       f"({label}): two calls differ")
+                worst = max(worst, err)
+    return worst
+
+
+def _first_agreement(a, b, p):
+    """Share of the new tokens of each row of ``a`` equal to ``b``'s up to
+    the first divergence."""
+    import numpy as np
+    shares = []
+    for x, y in zip(a[:, p:], b[:, p:]):
+        diff = np.nonzero(x != y)[0]
+        shares.append((diff[0] if diff.size else len(x)) / len(x))
+    return shares
+
+
+def _generate_runs(tp, tc, dp, dc, ep, *, k, tree, max_len, kv_dtype):
+    """label -> a call making (tokens, SpecStats) of one uniform-batch run:
+    AR, VSD, flat PARD, the PARD tree and EAGLE."""
+    from repro_torch.core.eagle import EagleDecoder
+    from repro_torch.core.spec_decode import SpecDecoder
+
+    def dec(**kw):
+        return SpecDecoder(tp, tc, dp, dc, k=k, max_len=max_len,
+                           kv_block_size=0, kv_dtype=kv_dtype, **kw)
+
+    flat, with_tree = dec(), dec(tree=tree)
+    eagle = EagleDecoder(tp, tc, ep, k=EAGLE_K, max_len=max_len,
+                         kv_dtype=kv_dtype)
+    tree_label = f"pard tree {','.join(map(str, tree))}"
+    return {"ar": lambda x, n: flat.generate_ar(x, n),
+            "vsd": lambda x, n: flat.generate_spec(x, n, mode="vsd"),
+            "pard": lambda x, n: flat.generate_spec(x, n),
+            tree_label: lambda x, n: with_tree.generate_spec(x, n),
+            "eagle": lambda x, n: eagle.generate(x, n)}
+
+
+def generate_expected(label, tc, dc, st, k):
+    """decode_attention / tree_attention launches of one run: one per
+    attention layer per forward. Prefills: the target's (AR: part of its
+    max_new forwards), the draft's or the head's; per iteration: the
+    target's verify, and one draft forward (PARD, the tree), K (VSD) or K
+    one-layer head passes (EAGLE)."""
+    ta, da = _layers(tc)[0], _layers(dc)[0]
+    it = st.iterations
+    if label == "ar":
+        return {"decode_attention": ta * st.target_forwards}
+    if label == "eagle":
+        return {"decode_attention": ta + 1 + (ta + EAGLE_K) * it}
+    if label.startswith("pard tree"):
+        return {"decode_attention": ta + da + da * it,
+                "tree_attention": ta * it}
+    per = da * (k if label == "vsd" else 1)
+    return {"decode_attention": ta + da + (ta + per) * it}
+
+
+def phase_generate(torch, kernels, args, dev="cuda"):
+    """The uniform-batch path: tiny fp32 generate_ar / generate_spec (pard,
+    vsd, tree) and EagleDecoder tokens on the card equal to the CPU port's
+    (weights made on the CPU and moved); decode_attention at 255-row
+    prefill windows; llama3.1-8b / llama3.2-1b at full width, bf16, batch
+    1, a --prompt-len prompt and GEN_MAX_NEW new tokens through AR, VSD,
+    flat PARD (K = 8), the PARD tree WIDE and EAGLE (K = 4, a random head on
+    llama3.1-8b), each with its exact attention launches; one eagle_loss
+    forward and backward on llama3.1-8b (B = 1, T = --prompt-len, bf16
+    activations) through the kernels and through the plain versions.
+    Returns (worst decode_attention error, launches by kernel and run)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.eagle import eagle_loss, init_eagle
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as model_attention
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import leaves
+
+    card = card_line()
+    worst = phase_prefill_windows(torch, args, dev)
+
+    # tiny fp32: the card against the CPU port, and every path == AR
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    cpu = (init_params(tc, args.seed, "cpu", torch.float32),
+           init_params(dc, args.seed + 1, "cpu", torch.float32),
+           init_eagle(tc, args.seed + 2, "cpu", torch.float32))
+    rng = np.random.default_rng(args.seed + 37)
+    x = rng.integers(0, tc.vocab_size, (3, 12))
+    tiny = {}
+    for where, (tp, dp, ep) in (("cpu", cpu),
+                                (dev, [_tree_to(t, dev) for t in cpu])):
+        runs = _generate_runs(tp, tc, dp, dc, ep, k=4, tree=(2, 2, 1),
+                              max_len=128, kv_dtype="fp32")
+        tiny[where] = {label: fn(x, 16)[0].cpu().numpy()
+                       for label, fn in runs.items()}
+    for label, toks in tiny[dev].items():
+        same = np.array_equal(toks, tiny["cpu"][label])
+        lossless = np.array_equal(toks, tiny[dev]["ar"])
+        log(f"[generate] tiny fp32 {label} on the card: tokens == the CPU "
+            f"port's: {same}; == AR: {lossless}")
+        if not (same and lossless):
+            raise SmokeFailure(f"tiny generate {label}: card tokens differ "
+                               f"from the CPU port's or from AR")
+
+    # full width, batch 1
+    tc, dc = get_config(GEN_TARGET), get_config(GEN_DRAFT)
+    t0 = time.perf_counter()
+    tp = init_params(tc, args.seed, dev, torch.bfloat16)
+    dp = init_params(dc, args.seed + 1, dev, torch.bfloat16)
+    ep = init_eagle(tc, args.seed + 2, dev, torch.bfloat16)
+    _sync(torch, dev)
+    log(f"[generate] {GEN_TARGET} + {GEN_DRAFT} + an EAGLE head on "
+        f"{GEN_TARGET}, random bf16 weights, on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    p, max_new = args.prompt_len, min(args.max_new, GEN_MAX_NEW)
+    x = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, tc.vocab_size, (1, p))).to(dev)
+    runs = _generate_runs(tp, tc, dp, dc, ep, k=GEN_K, tree=WIDE,
+                          max_len=p + max_new + 64, kv_dtype="bf16")
+    toks, launches = {}, {}
+    for label, fn in runs.items():
+        fn(x, 2)                                  # warm-up, not counted
+        _sync(torch, dev)
+        kernels.launches.clear()                  # counts to 0 just before
+        t0 = time.perf_counter()
+        out, st = fn(x, max_new)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        got = dict(kernels.launches)              # just after
+        launches[label] = got
+        toks[label] = out.cpu().numpy()
+        want = generate_expected(label, tc, dc, st, GEN_K)
+        ok_vocab = bool(((out >= 0) & (out < tc.vocab_size)).all())
+        log(f"[generate] {label} batch 1: {st.tokens_generated} tokens in "
+            f"{wall:.2f}s = {st.tokens_generated / wall:.1f} tok/s "
+            f"({card}); iterations={st.iterations} "
+            f"draft_forwards={st.draft_forwards} "
+            f"target_forwards={st.target_forwards} "
+            f"mean_accepted={st.mean_accepted:.3f} "
+            f"launches={got} (expected {want})")
+        if out.shape != (1, p + max_new) or not ok_vocab or \
+                not torch.equal(out[:, :p], x):
+            raise SmokeFailure(f"generate {label}: bad output")
+        if st.tokens_generated != max_new:
+            raise SmokeFailure(f"generate {label}: {st.tokens_generated} of "
+                               f"{max_new} tokens")
+        if got != want:
+            raise SmokeFailure(f"generate {label}: launches {got}, expected "
+                               f"{want}")
+    for label in runs:
+        if label != "ar":
+            shares = _first_agreement(toks[label], toks["ar"], p)
+            log(f"[generate] {label}: share of tokens equal to AR tokens up "
+                f"to the first divergence: {shares[0]:.3f}")
+
+    # eagle_loss through the kernels and through the plain versions
+    toks = torch.from_numpy(np.random.default_rng(args.seed + 41).integers(
+        0, tc.vocab_size, (1, p))).to(dev)
+    for t in leaves(ep):
+        t.requires_grad_(True)
+    got = {}
+    try:
+        eagle_loss(ep, tp, tc, toks, dtype=torch.bfloat16)[0].backward()
+        for route in ("kernels", "plain"):                # after a warm-up
+            if route == "plain":
+                model_attention.flash_attention = fa.flash_attention_ref
+            for t in leaves(ep):
+                t.grad = None
+            _sync(torch, dev)
+            kernels.launches.clear()
+            t0 = time.perf_counter()
+            loss, parts = eagle_loss(ep, tp, tc, toks, dtype=torch.bfloat16)
+            loss.backward()
+            _sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            got[route] = (loss.item(), [t.grad.float().clone()
+                                         for t in leaves(ep)],
+                          dict(kernels.launches), ms)
+    finally:
+        model_attention.flash_attention = fa.flash_attention
+        for t in leaves(ep):
+            t.requires_grad_(False)
+            t.grad = None
+    (lk, gk, nk, msk), (lp, gp, np_, msp) = got["kernels"], got["plain"]
+    norms = [(float(a.norm()), float(b.norm())) for a, b in zip(gk, gp)]
+    gnorm = [math.sqrt(sum(a * a for a, _ in norms)),
+             math.sqrt(sum(b * b for _, b in norms))]
+    diff = math.sqrt(sum(float((a - b).square().sum())
+                         for a, b in zip(gk, gp)))
+    want = {"flash_attention": _layers(tc)[0] + 1, "flash_attention_bwd": 1}
+    log(f"[eagle_loss] {GEN_TARGET} B=1 T={p} bf16: loss kernels {lk:.5f} "
+        f"plain {lp:.5f}; head grad norm kernels {gnorm[0]:.5f} plain "
+        f"{gnorm[1]:.5f}; |g_kernels - g_plain| / |g_plain| = "
+        f"{diff / max(gnorm[1], 1e-30):.3e}; forward + backward {msk:.1f} "
+        f"ms through the kernels, {msp:.1f} ms plain, eager wall ({card}); "
+        f"launches {nk} (expected {want}), plain route {np_}")
+    bad = [(a, b) for a, b in norms + [tuple(gnorm)]
+           if not abs(a - b) <= 2e-2 * max(1.0, b)]
+    if not abs(lk - lp) <= 2e-2 * max(1.0, abs(lp)) or bad:
+        raise SmokeFailure(f"eagle_loss through the kernels disagrees with "
+                           f"the plain versions: loss {lk} vs {lp}, grad "
+                           f"norms (kernels, plain) {bad}")
+    if nk != want or any(np_.values()):
+        raise SmokeFailure(f"eagle_loss launches {nk} (plain {np_}), "
+                           f"expected {want}")
+    launches["eagle_loss"] = nk
+    return worst, launches
+
+
+# ---------------------------------------------------------------------------
 # training kernels and training
 # ---------------------------------------------------------------------------
 
@@ -2502,6 +2795,8 @@ def main(argv=None) -> int:
         timed(phase_reference_loop, torch, args)
         launches = timed(phase_engine, torch, kernels, args)
         launches.update(timed(phase_ssm_engine, torch, kernels, args))
+        err, gen_launches = timed(phase_generate, torch, kernels, args)
+        errs["decode_attention"] = max(errs["decode_attention"], err)
         errs.update(timed(phase_train_correctness, torch, args))
         timing.update(timed(phase_train_timing, torch, F, args))
         launches.update(timed(phase_train, torch, kernels, args))
@@ -2516,6 +2811,11 @@ def main(argv=None) -> int:
         for r in ROUTES:
             timing[name][r].update(max_abs_err=errs[name, r],
                                    launches=launches.get((name, r)))
+    # the uniform-batch runs of phase 10: each kernel's launches per run
+    for name in KERNELS:
+        timing[name]["generate_launches"] = {
+            label: got[name] for label, got in gen_launches.items()
+            if got.get(name)}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=launches[name],

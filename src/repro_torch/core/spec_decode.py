@@ -1,8 +1,9 @@
 """Speculative decoding core shared with the serving engine: AR, VSD,
 PARD and PARD trees.
 
-Port of the chunked half of ``repro.core.spec_decode``, on paged or
-contiguous KV. A step advances a ``DecodeState``:
+Port of ``repro.core.spec_decode``, on paged or contiguous KV: the serving
+engine's chunked steps and the uniform-batch ``SpecDecoder.generate_ar`` /
+``generate_spec`` on contiguous caches. A step advances a ``DecodeState``:
 
   * the generation buffer ``gen [B, L]`` holds committed tokens and ``n``
     counts them; commits write a full (K+1)-slot window at offset n (slots
@@ -44,18 +45,24 @@ SSM model over a window with slots past what the row keeps (the draft's
 mask chain, the verify window's rejected drafts, pads of a short prompt
 chunk or of the AR window) collects its Mamba2 records (``collect_ssm``)
 and ``gather_ssm_states`` then sets each row's state to the one after its last
-kept token. The uniform-batch ``generate_*`` paths come with a later
-slice.
+kept token.
+
+``generate_ar`` / ``generate_spec`` run a uniform batch to completion on
+the unchunked steps (``chunked=False``: no prefill cursor, every row
+decodes): one whole-prompt prefill forward per model (``prefill_row``),
+then steps until every row holds ``max_new`` new tokens, reading each
+step's accepted counts and live rows in one device-to-host copy.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..models import forward
+from ..models import forward, init_caches
 from ..models.attention import (TreeAttnInfo, as_bytes,
                                 contiguous_flat_index, paged_flat_index)
 from ..models.config import SSM, ModelConfig, scan_plan
@@ -200,6 +207,59 @@ def _sampling_keys(state: DecodeState, prefilling):
     next_keys, use = _split_keys(state, prefilling)
     return (next_keys, acceptance.fold_row_keys(use, 0),
             acceptance.fold_row_keys(use, 1))
+
+
+def uniform_batch(prompt, device) -> torch.Tensor:
+    """A uniform batch of token ids (a [B, P] tensor, array or nested
+    list) as an int64 tensor on ``device``."""
+    prompt = torch.as_tensor(prompt)
+    if prompt.dim() != 2:
+        raise ValueError(
+            f"prompt must be [B, P], got {tuple(prompt.shape)}")
+    return prompt.to(device, torch.long)
+
+
+def prefill_row(params, cfg: ModelConfig, toks, plen, caches):
+    """Prefill ``toks`` [B, T] (right-padded past ``plen``) into contiguous
+    ``caches`` in place, from position 0, in the params' storage dtype.
+
+    ``plen=None``: every token is real (the uniform-batch prefills), and a
+    Mamba2 state ends after the last one. Given ``plen`` (an int or [B]),
+    KV written past it is never valid (``kv_len`` bookkeeping), and a
+    Mamba2 state, which cannot be masked after the fact, is set to the one
+    after token ``plen - 1``. Returns ``caches``."""
+    records = [] if plen is not None and has_ssm(cfg) else None
+    b = toks.shape[0]
+    forward(params, cfg, toks, caches=caches,
+            cache_pos=torch.zeros(b, dtype=torch.long, device=toks.device),
+            dtype=params["embed"]["embedding"].dtype, last_only=True,
+            collect_ssm=records)
+    if records is not None:
+        idx = torch.as_tensor(plen, device=toks.device).long() - 1
+        gather_ssm_states(records, idx.expand(b))
+    return caches
+
+
+@dataclasses.dataclass
+class SpecStats:
+    """Aggregate statistics of one ``generate_*`` run (the JAX package's
+    fields and arithmetic): forward counts, the acceptance histogram and
+    rates, and the host's time between iterations."""
+
+    iterations: int
+    tokens_generated: int
+    draft_forwards: int
+    target_forwards: int
+    accept_hist: Any          # [K]: how often draft position j was accepted
+    acceptance_rate: float    # mean accepted drafts / K per iteration
+    mean_accepted: float      # mean committed tokens per iteration (a + 1)
+    round_hist: Any = None    # [max_b]: accepts per sibling rank (tree;
+    #                           a chain: [1])
+    host_overhead_p50_ms: float = 0.0   # wall time between one iteration's
+    host_overhead_p95_ms: float = 0.0   # blocking read and the next dispatch
+    # sharded serving only in the JAX package; None here (one device)
+    collective_counts: Any = None
+    collective_bytes_per_step: Any = None
 
 
 def gather_ssm_states(records, idx) -> None:
@@ -440,19 +500,26 @@ class SpecDecoder:
     Params are the port's trees (``models.init_params`` or
     ``interop.params_from_numpy``); each forward runs in its params'
     storage dtype. ``kv_block_size`` is the paged pool's block size; 0
-    selects contiguous caches (``DecodeState.tables`` is then None).
-    ``tree`` (a branching iterable, ``TreeTemplate`` or ``TemplateBank``)
-    turns on tree drafting; K then is the bank's depth.
+    selects contiguous caches (``DecodeState.tables`` is then None), the
+    only layout of ``generate_ar`` / ``generate_spec``. ``tree`` (a
+    branching iterable, ``TreeTemplate`` or ``TemplateBank``) turns on
+    tree drafting; K then is the bank's depth. ``max_len`` (cache rows),
+    ``temperature`` (0: greedy) and ``kv_dtype`` ("bf16", "fp32", "int8",
+    "fp8") are the uniform-batch path's; the engine keeps its own.
     """
 
     def __init__(self, target_params, target_cfg: ModelConfig,
                  draft_params=None, draft_cfg: Optional[ModelConfig] = None,
-                 *, k: int = 8, kv_block_size: int = 64,
-                 prefill_chunk: int = 8, tree=None):
+                 *, k: int = 8, max_len: int = 2048, temperature: float = 0.0,
+                 kv_block_size: int = 64, prefill_chunk: int = 8, tree=None,
+                 kv_dtype: str = "bf16"):
         if draft_cfg is not None and draft_cfg.vocab_size != target_cfg.vocab_size:
             raise ValueError("speculative decoding requires a shared vocab")
         if kv_block_size < 0:
             raise ValueError(f"kv_block_size must be >= 0, got {kv_block_size}")
+        self.max_len = max_len
+        self.temperature = temperature
+        self.kv_dtype = kv_dtype
         self.tp, self.tc = target_params, target_cfg
         self.dp, self.dc = draft_params, draft_cfg
         if tree is not None:
@@ -652,30 +719,32 @@ class SpecDecoder:
 
     def _build_spec_step(self, mode: str, chunked: bool = False,
                          greedy_only: bool = False):
-        """One flat speculative step with chunked prefill (the engine's
-        step): mode "pard" drafts with one PARD forward, "vsd" with K AR
-        draft forwards. Returns ``step(state) -> (state, a)`` where ``a
-        [B]`` is each row's accepted draft count (0 for frozen rows).
+        """One flat speculative step: mode "pard" drafts with one PARD
+        forward, "vsd" with K AR draft forwards. Returns ``step(state) ->
+        (state, a)`` where ``a [B]`` is each row's accepted draft count (0
+        for frozen rows).
 
         Greedy rows propose the draft's argmax and keep the longest prefix
         matching the target argmax; sampled rows (temp > 0) propose by
         sampling the draft's softmax(logits / temp) and accept by Leviathan
-        speculative sampling. ``greedy_only=True`` builds the variant
-        without the sampled machinery and without key splitting, which
-        commits the same tokens when no row samples."""
-        if not chunked:
-            raise NotImplementedError(
-                "the unchunked step (generate_*) comes with a later slice of "
-                "the port")
+        speculative sampling. ``chunked=True`` (the engine's step) also
+        feeds prefilling rows their prompt chunks through the same two
+        forwards; ``chunked=False`` (``generate_spec``) leaves the prefill
+        cursor alone and every row not done decodes. ``greedy_only=True``
+        builds the variant without the sampled machinery and without key
+        splitting, which commits the same tokens when no row samples."""
         k = self.k
         cw = self.chunk_width
 
         def step(state: DecodeState):
             gen, n, m, done = state.gen, state.n, state.m, state.done
             tables, temp = state.tables, state.temp
-            prefilling, pf = _phase(state)
-            cl = torch.minimum(torch.full_like(pf, cw), state.pf_len - pf)
-            pfinfo = (prefilling, pf, cl)
+            if chunked:
+                prefilling, pf = _phase(state)
+                cl = torch.minimum(torch.full_like(pf, cw), state.pf_len - pf)
+                pfinfo = (prefilling, pf, cl)
+            else:
+                prefilling = pfinfo = None
             next_keys, dkeys, akeys = ((state.rngs, None, None) if greedy_only
                                        else _sampling_keys(state, prefilling))
             if mode == "pard":
@@ -693,9 +762,11 @@ class SpecDecoder:
 
             # verify window: [last committed, d_1..d_K]
             vin = torch.cat([gen.gather(1, (n - 1)[:, None]), props], dim=1)
-            vin = torch.where(prefilling[:, None],
-                              _chunk_window(gen, pf, cl, k + 1), vin)
-            vpos = torch.where(prefilling, pf, n - 1)
+            vpos = n - 1
+            if chunked:
+                vin = torch.where(prefilling[:, None],
+                                  _chunk_window(gen, pf, cl, k + 1), vin)
+                vpos = torch.where(prefilling, pf, vpos)
             records = []
             logits, tcache = self._forward(self.tp, self.tc, vin,
                                            state.tcache, vpos, tables,
@@ -711,11 +782,12 @@ class SpecDecoder:
                 commit = torch.where(sampled, commit_s, commit)
             # a Mamba2 target keeps the state after the last accepted draft
             # (slot a), a prefilling row after its chunk's last real token
-            gather_ssm_states(records, torch.where(prefilling, cl - 1, a))
+            gather_ssm_states(records, a if not chunked else
+                              torch.where(prefilling, cl - 1, a))
 
             # frozen rows commit nothing: done rows stay done, prefilling
             # rows consumed a prompt chunk instead of a verify window
-            frozen = done | prefilling
+            frozen = (done | prefilling) if chunked else done
             j = _arange(k + 1, gen)[None, :]
             props_ext = torch.cat([props, props[:, -1:]], dim=1)
             vec = torch.where(j < a[:, None], props_ext,
@@ -725,7 +797,9 @@ class SpecDecoder:
                 state, gen=_row_write(gen, vec, n),
                 n=n + torch.where(frozen, 0, a + 1),
                 m=torch.where(frozen, m, n), tcache=tcache, dcache=dcache,
-                rngs=next_keys, pf_pos=torch.where(prefilling, pf + cl, pf))
+                rngs=next_keys,
+                pf_pos=(torch.where(prefilling, pf + cl, pf) if chunked
+                        else state.pf_pos))
             return new_state, torch.where(frozen, 0, a)
         return step
 
@@ -750,8 +824,9 @@ class SpecDecoder:
 
     def _build_tree_step(self, chunked: bool = False,
                          greedy_only: bool = False):
-        """One tree-verification step over per-row templates with chunked
-        prefill (the engine's step when trees are on). Returns
+        """One tree-verification step over per-row templates (the engine's
+        step when trees are on, with ``chunked=True``; ``generate_spec``'s
+        with a tree, ``chunked=False``). Returns
         ``step(state) -> (state, a, rank)``: ``a [B]`` accepted depths (0
         for frozen rows), ``rank [B, D]`` the accepted sibling rank per
         depth (-1 where rejected or frozen), the adaptive controller's
@@ -763,8 +838,8 @@ class SpecDecoder:
         tokens at depth d, a sampled row draws every node i.i.d. from its
         depth's softmax(logits / temp). Verify: ONE target forward over the
         packed tree with logical positions root + depth and the tree mask;
-        ``win_len`` bounds each row to its own template. Prefilling rows
-        ride the same forwards: their chunk is a causal "tree"
+        ``win_len`` bounds each row to its own template. Chunked, prefilling
+        rows ride the same forwards: their chunk is a causal "tree"
         (all-lower-bits ancestor masks, ``win_len`` = the chunk's real
         tokens), sliced at the chunk width and padded to the window.
         Commit: a greedy row keeps the longest root path matching the
@@ -774,10 +849,6 @@ class SpecDecoder:
         positions, and losing branches are re-covered by the next window
         like flat rejects. ``greedy_only=True`` builds the variant without
         the sampled machinery and without key splitting."""
-        if not chunked:
-            raise NotImplementedError(
-                "the unchunked tree step (generate_*) comes with a later "
-                "slice of the port")
         bank = self.tree
         d, s = bank.max_depth, bank.max_slots
         max_b = bank.max_branching
@@ -794,15 +865,19 @@ class SpecDecoder:
             node_depth = depth[:, 1:]                              # [B, N]
             temp = state.temp
 
-            prefilling, pf = _phase(state)
-            cl = torch.minimum(torch.full_like(pf, cw), state.pf_len - pf)
+            if chunked:
+                prefilling, pf = _phase(state)
+                cl = torch.minimum(torch.full_like(pf, cw), state.pf_len - pf)
+                pfinfo = (prefilling, pf, cl)
+            else:
+                prefilling = pfinfo = None
             next_keys, dkeys, akeys = ((state.rngs, None, None) if greedy_only
                                        else _sampling_keys(state, prefilling))
 
             # draft: depth distributions -> per-row template tokens; one
             # top-max_b per depth covers every template's ranks
             lg, dcache = self._pard_depth_logits(gen, n, m, state.dcache,
-                                                 tables, (prefilling, pf, cl))
+                                                 tables, pfinfo)
             topk = _topk_indices(lg, max_b)                        # [B,D,MB]
             di = (node_depth - 1).clamp(min=0)
             per_node = topk.gather(1, di[:, :, None].expand(-1, -1, max_b))
@@ -820,18 +895,20 @@ class SpecDecoder:
             # verify: one target forward over the packed tree
             vin = torch.cat([gen.gather(1, (n - 1)[:, None]), props], dim=1)
             positions = (n - 1)[:, None] + depth
-            chunk = torch.nn.functional.pad(_chunk_window(gen, pf, cl, cw),
-                                            (0, s - cw))
-            vin = torch.where(prefilling[:, None], chunk, vin)
-            positions = torch.where(prefilling[:, None],
-                                    pf[:, None] + _arange(s, gen)[None, :],
-                                    positions)
-            win_start = torch.where(prefilling, pf, n - 1)
-            tinfo = TreeAttnInfo(
-                win_start=win_start,
-                anc=torch.where(prefilling[:, None], meta["chain_anc"][None],
-                                anc),
-                win_len=torch.where(prefilling, cl, nslots))
+            win_start, win_anc, win_len = n - 1, anc, nslots
+            if chunked:
+                chunk = torch.nn.functional.pad(
+                    _chunk_window(gen, pf, cl, cw), (0, s - cw))
+                vin = torch.where(prefilling[:, None], chunk, vin)
+                positions = torch.where(
+                    prefilling[:, None],
+                    pf[:, None] + _arange(s, gen)[None, :], positions)
+                win_start = torch.where(prefilling, pf, win_start)
+                win_anc = torch.where(prefilling[:, None],
+                                      meta["chain_anc"][None], win_anc)
+                win_len = torch.where(prefilling, cl, win_len)
+            tinfo = TreeAttnInfo(win_start=win_start, anc=win_anc,
+                                 win_len=win_len)
             logits, tcache = self._forward(self.tp, self.tc, vin,
                                            state.tcache, win_start, tables,
                                            positions=positions,
@@ -849,7 +926,7 @@ class SpecDecoder:
 
             # frozen rows commit nothing: done rows stay done, prefilling
             # rows consumed a prompt chunk instead of a verify window
-            frozen = done | prefilling
+            frozen = (done | prefilling) if chunked else done
             dflt = torch.arange(1, d + 1, device=gen.device)[None, :]
             # rejected depths and frozen rows: identity copy (src == dst)
             src_slot = torch.where((src_slot > 0) & ~frozen[:, None],
@@ -867,14 +944,164 @@ class SpecDecoder:
                 state, gen=_row_write(gen, vec, n),
                 n=n + torch.where(frozen, 0, a + 1),
                 m=torch.where(frozen, m, n), tcache=tcache, dcache=dcache,
-                rngs=next_keys, pf_pos=torch.where(prefilling, pf + cl, pf))
+                rngs=next_keys,
+                pf_pos=(torch.where(prefilling, pf + cl, pf) if chunked
+                        else state.pf_pos))
             return (new_state, torch.where(frozen, 0, a),
                     torch.where(frozen[:, None], -1, rank))
         return step
 
-    def generate_ar(self, *args, **kwargs):
-        raise NotImplementedError(
-            "uniform-batch generate_* on contiguous caches comes with a later "
-            "slice of the port; serve through serving.engine.Engine")
+    # ------------------------------------------------------- uniform batch
+    def _prompt(self, prompt) -> torch.Tensor:
+        """``prompt`` as ``uniform_batch`` gives it; only contiguous caches
+        serve a uniform batch."""
+        if self.kv_block_size:
+            raise ValueError(
+                "generate_* runs on contiguous caches: build the SpecDecoder "
+                f"with kv_block_size=0 (got {self.kv_block_size}); paged "
+                "pools are the serving engine's")
+        return uniform_batch(prompt, self.tp["embed"]["embedding"].device)
 
-    generate_spec = generate_ar
+    def init_state(self, prompt, gen_len: int, with_draft: bool = True,
+                   seed: int = 0) -> DecodeState:
+        """Contiguous-layout DecodeState for a uniform batch ``prompt [B,
+        P]``: ``gen`` of ``gen_len`` slots holding the prompt, n = P, m = P
+        - 1 (both prefills stop at the prompt's last token), caches of
+        ``max_len`` rows in ``kv_dtype``, every row at ``temperature``,
+        row b's threefry key from (seed, b), template 0 when trees are on,
+        and an idle prefill cursor."""
+        prompt = self._prompt(prompt)
+        b, p = prompt.shape
+        dev = prompt.device
+
+        def zeros(*shape, dt=torch.long):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        gen = zeros(b, gen_len)
+        gen[:, :p] = prompt
+        return DecodeState(
+            gen=gen, n=zeros(b) + p, m=zeros(b) + (p - 1),
+            done=zeros(b, dt=torch.bool),
+            tcache=init_caches(self.tc, b, self.max_len, self.kv_dtype, dev),
+            dcache=(init_caches(self.dc, b, self.max_len, self.kv_dtype, dev)
+                    if with_draft and self.dc is not None else None),
+            temp=torch.full((b,), float(self.temperature),
+                            dtype=torch.float32, device=dev),
+            rngs=acceptance.make_row_keys(seed, np.arange(b), dev),
+            tree_idx=zeros(b) if self.tree is not None else None,
+            pf_pos=zeros(b), pf_len=zeros(b))
+
+    @torch.no_grad()
+    def generate_ar(self, prompt, max_new: int, seed: int = 0):
+        """Plain autoregressive decoding (the losslessness reference):
+        ``[B, P] -> ([B, P + max_new] tokens, SpecStats)``. The prefill
+        covers the WHOLE prompt and its last logits commit the first new
+        token, so max_new forwards make max_new tokens."""
+        prompt = self._prompt(prompt)
+        b, p = prompt.shape
+        state = self.init_state(prompt, p + max_new + 1, with_draft=False,
+                                seed=seed)
+        greedy = self.temperature == 0.0
+        logits, _ = forward(self.tp, self.tc, prompt, caches=state.tcache,
+                            cache_pos=torch.zeros_like(state.n),
+                            dtype=self.tp["embed"]["embedding"].dtype,
+                            last_only=True)
+        if greedy:
+            state.gen[:, p] = logits[:, -1].argmax(dim=-1)
+        else:
+            state.rngs, use = acceptance.split_row_keys(state.rngs)
+            state.gen[:, p] = _pick_next(logits[:, -1], state.temp, use)
+        state.n += 1
+        step = self._build_ar_step(greedy_only=greedy)
+        for _ in range(max_new - 1):
+            state = step(state)
+        return (state.gen[:, :p + max_new],
+                SpecStats(max_new, max_new * b, 0, max_new, None, 0.0, 1.0))
+
+    @torch.no_grad()
+    def generate_spec(self, prompt, max_new: int, mode: str = "pard",
+                      seed: int = 0, tree_idx=None):
+        """Speculative decoding of a uniform batch: ``[B, P] -> ([B, P +
+        max_new] tokens, SpecStats)``. ``mode`` "pard" (flat, or the tree
+        when the decoder has one) or "vsd"; ``tree_idx`` ([B] ints) pins
+        each row to a bank template for the whole run (default: template
+        0). Both prefills stop at ``prompt[:, :-1]``: the first verify
+        window re-reads the last prompt token, which a Mamba2 state must
+        not see twice."""
+        if self.dp is None:
+            raise ValueError("spec decoding requires a draft model")
+        if mode not in ("pard", "vsd"):
+            raise ValueError(f"mode must be 'pard' or 'vsd', got {mode!r}")
+        if self.tree is not None and mode != "pard":
+            raise ValueError("tree templates require mode='pard'")
+        if self.tree is None and tree_idx is not None:
+            raise ValueError("tree_idx requires a TemplateBank")
+        prompt = self._prompt(prompt)
+        b, p = prompt.shape
+        if p < 2:
+            raise ValueError("prompts must have at least 2 tokens")
+        k = self.k
+        target_n = p + max_new
+        state = self.init_state(prompt, target_n + self.window_slack,
+                                seed=seed)
+        if tree_idx is not None:
+            idx = np.asarray(tree_idx, np.int64)
+            if (idx.shape != (b,) or idx.min() < 0
+                    or idx.max() >= len(self.tree)):
+                raise ValueError(f"tree_idx must be [{b}] ints in "
+                                 f"[0, {len(self.tree)}), got {idx}")
+            state.tree_idx.copy_(torch.from_numpy(idx))
+        prefill_row(self.tp, self.tc, prompt[:, :-1], None, state.tcache)
+        prefill_row(self.dp, self.dc, prompt[:, :-1], None, state.dcache)
+
+        greedy = self.temperature == 0.0
+        if self.tree is not None:
+            step = self._build_tree_step(greedy_only=greedy)
+            d, max_b = self.tree.max_depth, self.tree.max_branching
+        else:
+            step = self._build_spec_step(mode, greedy_only=greedy)
+        n_draft = k if mode == "vsd" else 1
+        depths = _arange(k, state.n)[None, :]
+        acc_hist = torch.zeros(k, dtype=torch.long, device=state.n.device)
+        round_hist = torch.zeros(max_b if self.tree is not None else 1,
+                                 dtype=torch.long, device=state.n.device)
+        iters, acc_total, live, live_iters = 0, 0, b, 0
+        host_overhead_ms = []       # blocking read done -> next dispatch
+        t_read = None
+        while True:
+            if t_read is not None:
+                host_overhead_ms.append((time.perf_counter() - t_read) * 1e3)
+            out = step(state)
+            state, a = out[0], out[1]          # a == 0 on done rows
+            acc_hist += (depths < a[:, None]).sum(dim=0)
+            if self.tree is not None:
+                rank = out[2]                  # -1: rejected or done
+                round_hist += (rank[:, :, None] == _arange(max_b, a)).sum(
+                    dim=(0, 1))
+            else:
+                round_hist += a.sum()
+            state.done = state.n >= target_n
+            # this iteration's accepted total and the rows still live, in
+            # one device-to-host copy
+            acc, live_next = torch.stack(
+                [a.sum(), (~state.done).sum()]).tolist()
+            t_read = time.perf_counter()
+            iters += 1
+            live_iters += live
+            acc_total += acc
+            live = live_next
+            if live == 0 or iters > max_new + 2:
+                break
+        live_iters = max(live_iters, 1)
+        pct = (lambda q: float(np.percentile(host_overhead_ms, q))
+               if host_overhead_ms else 0.0)
+        stats = SpecStats(
+            iterations=iters,
+            tokens_generated=int((state.n.clamp(max=target_n) - p).sum()),
+            draft_forwards=n_draft * iters, target_forwards=iters,
+            accept_hist=acc_hist.cpu().numpy(),
+            acceptance_rate=acc_total / (live_iters * k),
+            mean_accepted=acc_total / live_iters + 1.0,
+            round_hist=round_hist.cpu().numpy(),
+            host_overhead_p50_ms=pct(50), host_overhead_p95_ms=pct(95))
+        return state.gen[:, :target_n], stats

@@ -7,15 +7,19 @@ port's tree of tensors. Both packages use the same einsum layouts
 (``wq [d, Hq, hd]``, ``wo [Hq, hd, d]``, ...), so the conversion is a copy.
 Leaves are stored in ``dtype`` except the norm scales, which stay float32:
 bf16 storage equals the JAX code's ``.astype(x.dtype)`` at use.
-``params_to_numpy`` is its inverse: the port's tree with every leaf a
-float32 numpy array (bf16 leaves widen exactly), for checkpoints and for
-handing trained weights back to the JAX package.
+``eagle_params_from_numpy`` does the same for an EAGLE head's params
+(the JAX ``init_eagle`` tree: ``fuse``, ``layer.{norm1, mixer, norm2,
+mlp}``, ``out_norm``). ``params_to_numpy`` is the inverse of both: the
+port's tree with every leaf a float32 numpy array (bf16 leaves widen
+exactly), for checkpoints and for handing trained weights back to the JAX
+package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core.eagle import eagle_param_shapes
 from .models.config import ModelConfig
 from .models.transformer import leaf_dtype, param_shapes
 
@@ -24,6 +28,12 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu",
                       dtype=torch.float32):
     """JAX params (numpy leaves) -> port params on ``device``."""
     return _convert(tree, param_shapes(cfg), "", device, dtype)
+
+
+def eagle_params_from_numpy(tree, cfg: ModelConfig, device="cpu",
+                            dtype=torch.float32):
+    """JAX EAGLE head params (numpy leaves) -> port head params."""
+    return _convert(tree, eagle_param_shapes(cfg), "", device, dtype)
 
 
 def _convert(tree, shapes, name, device, dtype):

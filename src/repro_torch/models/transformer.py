@@ -14,6 +14,7 @@ leading ``n_repeats`` axis); the layer loop indexes the stacked leaves.
   forward(..., caches=, collect_ssm=records)     -> (logits, caches)
   forward(params, cfg, tokens, positions, mask_info=, remat=)
                                                  -> (logits, None)
+  forward(..., return_hidden=True)               -> (logits, caches, hidden)
 
 Without caches the forward is the training path: the whole sequence
 attends to itself (``flash_attention``, or ``pard_attention`` under a COD
@@ -80,22 +81,34 @@ def _layer_shapes(cfg: ModelConfig, spec):
                  "ssm_norm": ((d_in,), "ones"),
                  "out_proj": ((d_in, d), d_in)}
     else:
-        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        mixer = {"wq": ((d, hq, hd), d), "wk": ((d, hkv, hd), d),
-                 "wv": ((d, hkv, hd), d), "wo": ((hq, hd, d), hq * hd)}
-        if cfg.qkv_bias:
-            mixer.update(bq=((hq, hd), "zeros"), bk=((hkv, hd), "zeros"),
-                         bv=((hkv, hd), "zeros"))
-        if cfg.qk_norm:
-            mixer.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
+        mixer = gqa_shapes(cfg)
     layer = {"norm1": {"scale": ((d,), "ones")}, "mixer": mixer}
     if spec.mlp == MLP_DENSE:
-        f = cfg.d_ff
-        mlp = {"wi": ((d, f), d), "wo": ((f, d), f)}
-        if cfg.mlp_gated:
-            mlp["wg"] = ((d, f), d)
-        layer.update(norm2={"scale": ((d,), "ones")}, mlp=mlp)
+        layer.update(norm2={"scale": ((d,), "ones")},
+                     mlp=mlp_shapes(d, cfg.d_ff, cfg.mlp_gated))
     return layer
+
+
+def gqa_shapes(cfg: ModelConfig):
+    """{name: (shape, init)} of a GQA mixer (``init_gqa``)."""
+    d = cfg.d_model
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mixer = {"wq": ((d, hq, hd), d), "wk": ((d, hkv, hd), d),
+             "wv": ((d, hkv, hd), d), "wo": ((hq, hd, d), hq * hd)}
+    if cfg.qkv_bias:
+        mixer.update(bq=((hq, hd), "zeros"), bk=((hkv, hd), "zeros"),
+                     bv=((hkv, hd), "zeros"))
+    if cfg.qk_norm:
+        mixer.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
+    return mixer
+
+
+def mlp_shapes(d: int, f: int, gated: bool):
+    """{name: (shape, init)} of a dense MLP (``init_mlp``)."""
+    mlp = {"wi": ((d, f), d), "wo": ((f, d), f)}
+    if gated:
+        mlp["wg"] = ((d, f), d)
+    return mlp
 
 
 def _stack(tree, n: int):
@@ -141,6 +154,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     dtype: normal / sqrt(fan_in) matrices, unit norm scales, zero biases;
     Mamba2 conv weights normal x 0.1 and A_log = log(linspace(1, 16, H)),
     as the JAX package's init_mamba2 draws them."""
+    return init_tree(_param_tree(cfg), seed, device, dtype)
+
+
+def init_tree(tree, seed: int, device, dtype):
+    """Draw every ``(shape, init)`` leaf of ``tree`` as ``init_params``
+    describes, from one generator seeded with ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def make(name, leaf):
@@ -156,7 +175,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         w = torch.randn(shape, generator=gen, dtype=dt, device=device)
         return w.mul_(0.1 if init == "conv" else 1.0 / math.sqrt(init))
 
-    return _map(_param_tree(cfg), make)
+    return _map(tree, make)
 
 
 def _index(tree, r: int):
@@ -241,7 +260,8 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             positions=None, *, caches=None, cache_pos=None, block_tables=None,
             kv_block_size: int = 0, dtype=torch.bfloat16,
             last_only: bool = False, tree_info=None, mask_info=None,
-            remat: bool = False, collect_ssm: Optional[list] = None):
+            remat: bool = False, collect_ssm: Optional[list] = None,
+            return_hidden: bool = False):
     """Run the decoder stack.
 
     tokens [B, T]. With ``caches`` (written in place), a window against KV
@@ -256,7 +276,9 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     cached state and write the new state in place; given a
     ``collect_ssm`` list they leave it and append one record each
     (``models.ssm.mamba2_apply``) for ``core.spec_decode.gather_ssm_states``.
-    Returns (logits [B, T or 1, padded_vocab], caches).
+    Returns (logits [B, T or 1, padded_vocab], caches), and with
+    ``return_hidden`` also the pre-final-norm features [B, T or 1, d] (the
+    JAX forward's ``aux["hidden"]``, which EAGLE heads condition on).
     """
     check_supported(cfg)
     plan = scan_plan(cfg)
@@ -300,6 +322,9 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
         x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
     if last_only:
         x = x[:, -1:]
+    hidden = x
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed_apply(params["embed"], x, cfg)
+    if return_hidden:
+        return logits, caches, hidden
     return logits, caches

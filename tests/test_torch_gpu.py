@@ -1393,3 +1393,79 @@ def test_handle_survives_next_dispatch_and_admission_on_card(cuda, kw):
         if u is not None:
             np.testing.assert_array_equal(u, v, err_msg=name)
     assert got.n[2] == 2 and eng.ex.harvest(later).n[2] == len(prompts[2])
+
+
+# ------------------------------------------------- the uniform-batch path
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (32, 8, 64)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_decode_attention_at_a_prefill_window(cuda, hq, hkv, d, dtype, tol):
+    """generate_*'s whole-prompt prefill window: Tq = 255 rows from
+    position 0 at G = 4 (1020 query rows, 8 row tiles), kv_len at the
+    window's end and past S; bitwise equal on a second call."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    b, tq, s = 2, 255, 256
+    q = torch.randn(b, tq, hq, d, generator=g)
+    k = torch.randn(b, s, hkv, d, generator=g)
+    v = torch.randn(b, s, hkv, d, generator=g)
+    k[:, tq:], v[:, tq:] = 1e4, -1e4               # past every query
+    case = dict(q=q.to(cuda, dtype), k=k.to(cuda, dtype), v=v.to(cuda, dtype),
+                kv_len=torch.tensor([tq, 300], dtype=torch.int32,
+                                    device=cuda),
+                q_pos=torch.arange(tq, dtype=torch.int32,
+                                   device=cuda)[None].repeat(b, 1))
+    before = kernels.launches["decode_attention"]
+    out, again = da.decode_attention(**case), da.decode_attention(**case)
+    torch.cuda.synchronize()
+    assert kernels.launches["decode_attention"] == before + 2
+    want = da.decode_attention_ref(**case)
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(out, again)
+
+
+def _tiny_generate(dev, cpu_models, **kw):
+    from repro_torch.core.eagle import EagleDecoder
+    from repro_torch.core.spec_decode import SpecDecoder
+    tp, dp, ep = [_to(t, dev) for t in cpu_models]
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    x = np.random.default_rng(3).integers(0, 512, (3, 12))
+    flat = SpecDecoder(tp, tc, dp, dc, k=4, max_len=128, kv_block_size=0,
+                       kv_dtype="fp32", **kw)
+    tree = SpecDecoder(tp, tc, dp, dc, max_len=128, kv_block_size=0,
+                       kv_dtype="fp32", tree=(2, 2, 1), **kw)
+    out = {"ar": flat.generate_ar(x, 16), "pard": flat.generate_spec(x, 16),
+           "vsd": flat.generate_spec(x, 16, mode="vsd"),
+           "tree": tree.generate_spec(x, 16)}
+    if not kw:
+        out["eagle"] = EagleDecoder(tp, tc, ep, k=4, max_len=128,
+                                    kv_dtype="fp32").generate(x, 16)
+    return {name: (t.cpu().numpy(), st) for name, (t, st) in out.items()}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(temperature=0.8)])
+def test_tiny_generate_on_card_equals_cpu(cuda, kw):
+    """tiny fp32 generate_ar / generate_spec (pard, vsd, tree) and the
+    EAGLE decoder: the card's tokens and stats equal the CPU port's
+    (weights made on the CPU and moved); greedy, every path equals AR."""
+    from repro_torch.core.eagle import init_eagle
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    models = (init_params(tc, 0, "cpu", torch.float32),
+              init_params(dc, 1, "cpu", torch.float32),
+              init_eagle(tc, 2, "cpu", torch.float32))
+    before = kernels.launches["decode_attention"]
+    got = _tiny_generate(cuda, models, **kw)
+    assert kernels.launches["decode_attention"] > before
+    want = _tiny_generate("cpu", models, **kw)
+    for name, (toks, st) in got.items():
+        assert np.array_equal(toks, want[name][0]), name
+        assert st.iterations == want[name][1].iterations, name
+        if not kw:
+            assert np.array_equal(toks, got["ar"][0]), name
