@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
   python3 chip_smoke.py [--seed 0] [--requests 8] [--prompt-len 256]
-                        [--max-new 128] [--train-steps 20]
+                        [--max-new 64] [--train-steps 20]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -144,13 +144,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ``eagle_loss`` forward and backward on llama3.1-8b (B = 1, T =
      --prompt-len, bf16) through the kernels and through the plain
      versions (loss and head gradient norms within 2e-2, one backward
-     launch: the head's).
+     launch: the head's);
+ 11. trained weights (run after phase 9): the recipe of
+     ``repro_torch.examples`` in fp32 (params, moments and activations:
+     the attention kernels' fp32 routes): bench-target, bench-draft and
+     bench-mid AR (B 8, N 48), pard_k8_r07 (COD K 8, r 0.7, r_min 0.2;
+     B 8, N 64) and the EAGLE head on bench-target (B 8, N 48), 300 steps
+     each, each asserting its exact flash / pard attention launches and a
+     finite, falling loss, and (but bench-mid) one step of its first
+     batch through the kernels and the plain versions (loss, gradient
+     norm and gradient difference within 2e-2); on those weights the
+     quickstart's uniform batch (4 Markov prompts of 16 tokens, 48 new)
+     through AR, VSD (K 8), flat PARD at K 4 and K 8, the PARD tree
+     (2,2,1,1,1,1,1,1), EAGLE (K 4) and PARD K 4 with the unadapted
+     draft, in fp32 and in bf16, each with its exact decode / tree
+     attention launches: every fp32 path equal to AR, greedy PARD K 4
+     mean accepted >= 1.8 and above the unadapted draft's, the bf16
+     share of tokens equal to AR's up to the first divergence printed;
+     the engine in fp32 on the serve launcher's prompts (8 of 16 tokens,
+     48 new, max_batch 4): paged PARD, AR, VSD and the paged adaptive
+     tree (its tree_hist and switches printed), greedy, equal to AR, and
+     paged PARD at T = 0.8 repeated bit for bit with mean accepted >=
+     1.3, each with its exact paged launches; then the
+     target-independence table (pard_k8_r07 against bench-target,
+     bench-mid and bench-draft at K 8, lossless).
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers (a serving-attention kernel's row also lists every timing row of
 phase 4 under ``timings``, and its int8 and fp8 routes' error, launches
 and times under ``int8`` / ``fp8``; every row lists its launches in each
-run of phase 10 under ``generate_launches``) and the result line ``{"ok":
+run of phase 10 under ``generate_launches`` and of phase 11 under
+``trained_launches``) and the result line ``{"ok":
 true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -598,9 +622,9 @@ def check_tensor_cores(build, name):
         + ", ".join(f"{k} {v}" for k, v in sorted(seen.items())))
 
 
-def _sync(torch, dev):
-    if dev == "cuda":
-        torch.cuda.synchronize()
+def _sync(dev):
+    from repro_torch.device import synchronize
+    synchronize(dev)
 
 
 def _tree_to(tree, dev):
@@ -797,7 +821,7 @@ def phase_correctness(torch, args, dev="cuda"):
         for label, kw in cases:
             case = make_case(torch, gen, rng, kind, dev=dev, **kw)
             out = fn(**case)
-            _sync(torch, dev)
+            _sync(dev)
             want = oracle(ref, case)
             if not torch.isfinite(out).all():
                 raise SmokeFailure(f"{name} output not finite ({label})")
@@ -810,7 +834,7 @@ def phase_correctness(torch, args, dev="cuda"):
                                    f"({label}): {err} > {tol}")
             if case["q"].shape[1] == 1:
                 again = fn(**case)
-                _sync(torch, dev)
+                _sync(dev)
                 log(f"[kernel vs plain] {name} {label}: a second call bitwise "
                     f"equal: {torch.equal(out, again)}")
                 if not torch.equal(out, again):
@@ -845,7 +869,7 @@ def phase_split_kv(torch, args, dev="cuda"):
         key = (name, route(case)) if route(case) else name
         name_r = f"{name} {route(case)}" if route(case) else name
         first, second = fn(**case), fn(**case)
-        _sync(torch, dev)
+        _sync(dev)
         same = torch.equal(first, second)
         log(f"[split-kv] {name_r}: two calls bitwise equal: {same}")
         if not same:
@@ -860,7 +884,7 @@ def phase_split_kv(torch, args, dev="cuda"):
             case["kv_len"] -= 37
             case["q_pos"] -= 37
         graph.replay()
-        _sync(torch, dev)
+        _sync(dev)
         err = (out.float() - oracle(ref, case).float()).abs().max().item()
         log(f"[split-kv] {name_r}: CUDA graph replayed with rewritten kv_len "
             f"and q_pos vs plain: max_abs_err={err:.3e} tol={TOL['bfloat16']:g}")
@@ -1160,13 +1184,13 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
         eng.submit(p, max_new, temperature=0.0 if i < greedy else None)
     if pipelined and dev == "cuda":
         guard_host_side(torch, eng)
-    _sync(torch, dev)
+    _sync(dev)
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()                  # counts to 0 just before
     t0 = time.perf_counter()
     comps = eng.run(pipelined=pipelined)
-    _sync(torch, dev)
+    _sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)         # just after
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
@@ -1203,6 +1227,7 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
                            f"{want}")
     info = dict(capacity=eng.kv_capacity_bytes(), stats=dict(eng.stats),
                 lat=lat, tok_s=gen / wall, hit_rate=eng.prefix_hit_rate(),
+                mean_accepted=eng.mean_accepted(),
                 in_use=None if eng.alloc is None else eng.alloc.blocks_in_use)
     return {c.rid: c.tokens for c in comps}, launches, info
 
@@ -1309,21 +1334,33 @@ def loop_runs(torch, kernels, Engine, runs, tokens, infos, tp, tc, dp, dc,
             torch.cuda.empty_cache()
 
 
+def uniform_shared_prefix(seed, requests, prompt_len, share, vocab_size):
+    """The shared-prefix mix of phase 6 (a) on uniform random tokens:
+    ``share`` requests per system prompt of ``prompt_len`` tokens, each
+    with an 8-token tail of its own, the groups round-robin."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    systems = [rng.integers(0, vocab_size, size=prompt_len)
+               for _ in range(-(-requests // share))]
+    return [np.concatenate([systems[i % len(systems)],
+                            rng.integers(0, vocab_size, size=8)])
+            for i in range(requests)]
+
+
 def prefix_runs(torch, kernels, Engine, EngineConfig, tp, tc, dp, dc, args,
                 dev):
-    """Phase 6 (a): paged PARD on the launcher's shared-prefix mix
-    (``--requests`` requests, 2 per system prompt of ``--prompt-len``
-    tokens, each with an 8-token tail), with the prefix cache and cold.
+    """Phase 6 (a): paged PARD on a shared-prefix mix of uniform random
+    tokens (``--requests`` requests, 2 per system prompt of
+    ``--prompt-len`` tokens, each with an 8-token tail), with the prefix
+    cache and cold.
     Every request's tokens equal the cold run's (at a fixed batch shape a
     row's arithmetic does not depend on the other rows, and the shared
     positions were prefilled in the same chunks); the second request of
     each system prompt hits all its full system blocks; every block is
     back at the end."""
     import numpy as np
-    from repro_torch.launch.serve import workload
-    ns = argparse.Namespace(seed=args.seed, requests=args.requests,
-                            prompt_len=args.prompt_len, prefix_share=2)
-    prompts = workload(ns, tc.vocab_size)
+    prompts = uniform_shared_prefix(args.seed, args.requests,
+                                    args.prompt_len, 2, tc.vocab_size)
     got = {}
     for label, cache in (("pard paged prefix cold", False),
                          ("pard paged prefix warm", True)):
@@ -1374,7 +1411,7 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
     t0 = time.perf_counter()
     tp = init_params(tc, args.seed, dev, torch.bfloat16)
     dp = init_params(dc, args.seed + 1, dev, torch.bfloat16)
-    _sync(torch, dev)
+    _sync(dev)
     n_params = sum(t.numel() for tree in (tp, dp) for t in leaves(tree))
     log(f"[engine] {target} + {draft} random bf16 weights "
         f"({n_params / 1e9:.2f}B params) on the card in "
@@ -1530,7 +1567,7 @@ def _ssd_check(torch, ssd, c, label, dev):
     max abs error of y and the final state."""
     t = c["x"].shape[1]
     y, st = ssd.ssd_chunked(*_ssd_args(c), chunk=c["chunk"])
-    _sync(torch, dev)
+    _sync(dev)
     wy, ws = ssd.ssd_chunked_ref(*_ssd_args(c),
                                  chunk=ssd.clamp_chunk(c["chunk"], t))
     tol = TOL[str(c["x"].dtype).split(".")[1]]
@@ -1576,7 +1613,7 @@ def phase_ssd_correctness(torch, args, dev="cuda"):
                 x, dt, A, B, C, s0 = _ssd_args(c)
                 _, st = ssd.ssd_chunked(x, dt * keep[..., None], A, B, C, s0,
                                         chunk=64)
-                _sync(torch, dev)
+                _sync(dev)
                 _, states = ssd.ssd_ref(x, dt, A, B, C, s0,
                                         collect_states=True)
                 want = states[torch.arange(4, device=dev), idx]
@@ -1606,7 +1643,7 @@ def phase_ssd_correctness(torch, args, dev="cuda"):
                      **SSD_SHAPES["mamba2-130m"])
         x, dt, A, B, C, s0 = _ssd_args(c)
         _, same = ssd.ssd_chunked(x, dt * 0, A, B, C, s0, chunk=64)
-        _sync(torch, dev)
+        _sync(dev)
         log(f"[kernel vs plain] ssd_chunked fully masked window {dtype}: "
             f"state == init_state bit for bit: {torch.equal(same, s0)}")
         if not torch.equal(same, s0):
@@ -1623,7 +1660,7 @@ def _ssd_repeat_and_graph(torch, ssd, gen, dtype, dev):
                  **SSD_SHAPES["mamba2-130m"])
     args = _ssd_args(c)
     first, second = (ssd.ssd_chunked(*args, chunk=64) for _ in range(2))
-    _sync(torch, dev)
+    _sync(dev)
     same = all(torch.equal(a, b) for a, b in zip(first, second))
     graph, outs = capture(torch, lambda a: ssd.ssd_chunked(*a, chunk=64),
                           [args])
@@ -1632,9 +1669,9 @@ def _ssd_repeat_and_graph(torch, ssd, gen, dtype, dev):
     for buf, val in zip(args, new):
         buf.copy_(val)
     graph.replay()
-    _sync(torch, dev)
+    _sync(dev)
     eager = ssd.ssd_chunked(*new, chunk=64)
-    _sync(torch, dev)
+    _sync(dev)
     replay = all(torch.equal(a, b) for a, b in zip(outs[0], eager))
     log(f"[kernel vs plain] ssd_chunked {dtype}: two calls bitwise equal: "
         f"{same}; CUDA-graph replay on new inputs == eager call: {replay}")
@@ -1968,7 +2005,7 @@ def phase_ssm_engine(torch, kernels, args, dev="cuda"):
     t0 = time.perf_counter()
     tp = init_params(cfg, args.seed, dev, torch.bfloat16)
     dp = init_params(cfg, args.seed + 1, dev, torch.bfloat16)
-    _sync(torch, dev)
+    _sync(dev)
     n_params = sum(t.numel() for t in leaves(tp))
     log(f"[engine ssm] {SSM_MODEL} ({SSM_LAYERS} of 24 layers) target + "
         f"draft, random bf16 weights "
@@ -2048,7 +2085,7 @@ def phase_prefill_windows(torch, args, dev="cuda"):
                                      .expand(2, tq).to(torch.int32)
                                      .contiguous())
                 out, again = (da.decode_attention(**case) for _ in range(2))
-                _sync(torch, dev)
+                _sync(dev)
                 want = oracle(da.decode_attention_ref, case)
                 if not torch.isfinite(out).all():
                     raise SmokeFailure(f"decode_attention prefill window "
@@ -2072,36 +2109,37 @@ def phase_prefill_windows(torch, args, dev="cuda"):
     return worst
 
 
-def _first_agreement(a, b, p):
-    """Share of the new tokens of each row of ``a`` equal to ``b``'s up to
-    the first divergence."""
-    import numpy as np
-    shares = []
-    for x, y in zip(a[:, p:], b[:, p:]):
-        diff = np.nonzero(x != y)[0]
-        shares.append((diff[0] if diff.size else len(x)) / len(x))
-    return shares
-
-
-def _generate_runs(tp, tc, dp, dc, ep, *, k, tree, max_len, kv_dtype):
-    """label -> a call making (tokens, SpecStats) of one uniform-batch run:
-    AR, VSD, flat PARD, the PARD tree and EAGLE."""
+def _generate_runs(tp, tc, dp, dc, ep, *, ks, tree, max_len, kv_dtype,
+                   unadapted=None):
+    """label -> (K, a call making (tokens, SpecStats)) of each uniform-batch
+    run: AR, VSD, flat PARD at each K of ``ks``, the PARD tree and EAGLE
+    (EAGLE_K); VSD and the tree at the largest K. Given ``unadapted`` (the
+    draft before COD), VSD drafts with it, and PARD with it runs at the
+    smallest K as well."""
     from repro_torch.core.eagle import EagleDecoder
     from repro_torch.core.spec_decode import SpecDecoder
 
-    def dec(**kw):
-        return SpecDecoder(tp, tc, dp, dc, k=k, max_len=max_len,
+    def dec(draft, k, **kw):
+        return SpecDecoder(tp, tc, draft, dc, k=k, max_len=max_len,
                            kv_block_size=0, kv_dtype=kv_dtype, **kw)
 
-    flat, with_tree = dec(), dec(tree=tree)
+    top = max(ks)
+    flat = {k: dec(dp, k) for k in ks}
+    vsd = flat[top] if unadapted is None else dec(unadapted, top)
+    with_tree = dec(dp, top, tree=tree)
     eagle = EagleDecoder(tp, tc, ep, k=EAGLE_K, max_len=max_len,
                          kv_dtype=kv_dtype)
-    tree_label = f"pard tree {','.join(map(str, tree))}"
-    return {"ar": lambda x, n: flat.generate_ar(x, n),
-            "vsd": lambda x, n: flat.generate_spec(x, n, mode="vsd"),
-            "pard": lambda x, n: flat.generate_spec(x, n),
-            tree_label: lambda x, n: with_tree.generate_spec(x, n),
-            "eagle": lambda x, n: eagle.generate(x, n)}
+    runs = {"ar": (top, lambda x, n: flat[top].generate_ar(x, n)),
+            "vsd": (top, lambda x, n: vsd.generate_spec(x, n, mode="vsd"))}
+    for k, d in flat.items():
+        runs[f"pard k{k}"] = (k, lambda x, n, d=d: d.generate_spec(x, n))
+    runs[f"pard tree {','.join(map(str, tree))}"] = (
+        top, lambda x, n: with_tree.generate_spec(x, n))
+    runs["eagle"] = (EAGLE_K, lambda x, n: eagle.generate(x, n))
+    if unadapted is not None:
+        k, d = min(ks), dec(unadapted, min(ks))
+        runs[f"pard k{k} unadapted"] = (k, lambda x, n: d.generate_spec(x, n))
+    return runs
 
 
 def generate_expected(label, tc, dc, st, k):
@@ -2137,6 +2175,7 @@ def phase_generate(torch, kernels, args, dev="cuda"):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.eagle import eagle_loss, init_eagle
+    from repro_torch.examples.quickstart import first_agreement
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as model_attention
     from repro_torch.models import init_params
@@ -2155,10 +2194,10 @@ def phase_generate(torch, kernels, args, dev="cuda"):
     tiny = {}
     for where, (tp, dp, ep) in (("cpu", cpu),
                                 (dev, [_tree_to(t, dev) for t in cpu])):
-        runs = _generate_runs(tp, tc, dp, dc, ep, k=4, tree=(2, 2, 1),
+        runs = _generate_runs(tp, tc, dp, dc, ep, ks=(4,), tree=(2, 2, 1),
                               max_len=128, kv_dtype="fp32")
         tiny[where] = {label: fn(x, 16)[0].cpu().numpy()
-                       for label, fn in runs.items()}
+                       for label, (_, fn) in runs.items()}
     for label, toks in tiny[dev].items():
         same = np.array_equal(toks, tiny["cpu"][label])
         lossless = np.array_equal(toks, tiny[dev]["ar"])
@@ -2174,28 +2213,28 @@ def phase_generate(torch, kernels, args, dev="cuda"):
     tp = init_params(tc, args.seed, dev, torch.bfloat16)
     dp = init_params(dc, args.seed + 1, dev, torch.bfloat16)
     ep = init_eagle(tc, args.seed + 2, dev, torch.bfloat16)
-    _sync(torch, dev)
+    _sync(dev)
     log(f"[generate] {GEN_TARGET} + {GEN_DRAFT} + an EAGLE head on "
         f"{GEN_TARGET}, random bf16 weights, on the card in "
         f"{time.perf_counter() - t0:.1f}s")
     p, max_new = args.prompt_len, min(args.max_new, GEN_MAX_NEW)
     x = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, tc.vocab_size, (1, p))).to(dev)
-    runs = _generate_runs(tp, tc, dp, dc, ep, k=GEN_K, tree=WIDE,
+    runs = _generate_runs(tp, tc, dp, dc, ep, ks=(GEN_K,), tree=WIDE,
                           max_len=p + max_new + 64, kv_dtype="bf16")
     toks, launches = {}, {}
-    for label, fn in runs.items():
+    for label, (k, fn) in runs.items():
         fn(x, 2)                                  # warm-up, not counted
-        _sync(torch, dev)
+        _sync(dev)
         kernels.launches.clear()                  # counts to 0 just before
         t0 = time.perf_counter()
         out, st = fn(x, max_new)
-        _sync(torch, dev)
+        _sync(dev)
         wall = time.perf_counter() - t0
         got = dict(kernels.launches)              # just after
         launches[label] = got
         toks[label] = out.cpu().numpy()
-        want = generate_expected(label, tc, dc, st, GEN_K)
+        want = generate_expected(label, tc, dc, st, k)
         ok_vocab = bool(((out >= 0) & (out < tc.vocab_size)).all())
         log(f"[generate] {label} batch 1: {st.tokens_generated} tokens in "
             f"{wall:.2f}s = {st.tokens_generated / wall:.1f} tok/s "
@@ -2215,9 +2254,9 @@ def phase_generate(torch, kernels, args, dev="cuda"):
                                f"{want}")
     for label in runs:
         if label != "ar":
-            shares = _first_agreement(toks[label], toks["ar"], p)
+            share = first_agreement(toks[label], toks["ar"], p)
             log(f"[generate] {label}: share of tokens equal to AR tokens up "
-                f"to the first divergence: {shares[0]:.3f}")
+                f"to the first divergence: {share:.3f}")
 
     # eagle_loss through the kernels and through the plain versions
     toks = torch.from_numpy(np.random.default_rng(args.seed + 41).integers(
@@ -2232,12 +2271,12 @@ def phase_generate(torch, kernels, args, dev="cuda"):
                 model_attention.flash_attention = fa.flash_attention_ref
             for t in leaves(ep):
                 t.grad = None
-            _sync(torch, dev)
+            _sync(dev)
             kernels.launches.clear()
             t0 = time.perf_counter()
             loss, parts = eagle_loss(ep, tp, tc, toks, dtype=torch.bfloat16)
             loss.backward()
-            _sync(torch, dev)
+            _sync(dev)
             ms = (time.perf_counter() - t0) * 1e3
             got[route] = (loss.item(), [t.grad.float().clone()
                                          for t in leaves(ep)],
@@ -2407,9 +2446,9 @@ def phase_train_correctness(torch, args, dev="cuda"):
             if not have:
                 raise SmokeFailure(f"{label}: the layout has no {need} tile")
         got = fwd_bwd(c, plain=False)
-        _sync(torch, dev)
+        _sync(dev)
         again = fwd_bwd(c, plain=False)
-        _sync(torch, dev)
+        _sync(dev)
         if not all(torch.equal(x, y) for x, y in zip(got[1:], again[1:])):
             raise SmokeFailure(f"{kind}: two backward calls differ ({label})")
         want = fwd_bwd(c, plain=True)
@@ -2604,22 +2643,17 @@ def phase_train_timing(torch, F, args, dev="cuda"):
     return results
 
 
-def _grad_norm(torch, params):
-    from repro_torch.training.optimizer import leaves
-    return math.sqrt(sum(float(p.grad.float().square().sum())
-                         for p in leaves(params)))
-
-
-def compare_plain_step(torch, kernels, tr, params, batch):
-    """Loss and global grad norm of one step through the kernels and
-    through the plain versions on the card (the model's attention module
-    is pointed at the plain versions for the second run only)."""
+def _route_grads(torch, kernels, loss_fn, params):
+    """Loss, global gradient norm and launches of ``loss_fn()`` through the
+    kernels and through the plain versions (the model's attention module
+    pointed at them for the second run), and |g_kernels - g_plain|, taken
+    one leaf at a time: only the kernel route's gradients are kept, not
+    copied, while the plain route's come in."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pard_attention as pa
     from repro_torch.models import attention as model_attention
     from repro_torch.training.optimizer import leaves
-    got = {}
-    tr.remat = True                     # one layer's plain [T, T] scores at a time
+    got, kept, diff2 = {}, [], 0.0
     try:
         for route in ("kernels", "plain"):
             if route == "plain":
@@ -2631,17 +2665,38 @@ def compare_plain_step(torch, kernels, tr, params, batch):
                 p.requires_grad_(True)
                 p.grad = None
             kernels.launches.clear()
-            loss, _ = tr.loss(params, batch)
+            loss = loss_fn()
             loss.backward()
-            got[route] = (loss.item(), _grad_norm(torch, params),
+            norm2 = 0.0
+            for i, p in enumerate(leaves(params)):
+                g = p.grad.float()
+                norm2 += float(g.square().sum())
+                if route == "kernels":
+                    kept.append(p.grad)
+                else:
+                    diff2 += float((kept[i].float() - g).square().sum())
+                    kept[i] = None
+                p.grad = None
+            got[route] = (loss.item(), math.sqrt(norm2),
                           dict(kernels.launches))
     finally:
         model_attention.flash_attention = fa.flash_attention
         model_attention.pard_attention = pa.pard_attention
-        tr.remat = False
         for p in leaves(params):
+            p.requires_grad_(False)
             p.grad = None
-    return got
+    return got, math.sqrt(diff2)
+
+
+def compare_plain_step(torch, kernels, tr, params, batch):
+    """``_route_grads`` of one training step on the card, one layer's
+    plain [T, T] scores at a time (remat)."""
+    tr.remat = True
+    try:
+        return _route_grads(torch, kernels,
+                            lambda: tr.loss(params, batch)[0], params)
+    finally:
+        tr.remat = False
 
 
 def step_parts_ms(torch, tr, params, state, batch):
@@ -2682,13 +2737,14 @@ def phase_train(torch, kernels, args, dev="cuda"):
 
         one = tr.make_batch(corpus.sample(np.random.default_rng(args.seed + 5),
                                           1, n), seed=args.seed)
-        got = compare_plain_step(torch, kernels, tr, params, one)
+        got, diff = compare_plain_step(torch, kernels, tr, params, one)
         (lk, gk, nk), (lp, gp, np_) = got["kernels"], got["plain"]
         rel = max(abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
         log(f"[train {kind}] B=1 N={n} one step on the card: loss kernels "
             f"{lk:.6f} plain {lp:.6f}; grad norm kernels {gk:.6f} plain "
-            f"{gp:.6f}; max rel diff {rel:.3e} (tol 2e-2); launches kernels "
-            f"{nk} plain {np_}")
+            f"{gp:.6f}; max rel diff {rel:.3e} (tol 2e-2); |g_k - g_p| / "
+            f"|g_p| = {diff / max(gp, 1e-30):.3e}; launches kernels {nk} "
+            f"plain {np_}")
         if not (rel <= 2e-2 and math.isfinite(lk) and math.isfinite(gk)):
             raise SmokeFailure(f"train {kind}: kernels and plain versions "
                                f"disagree (rel {rel})")
@@ -2697,14 +2753,14 @@ def phase_train(torch, kernels, args, dev="cuda"):
                                f"intended attention ({nk} / {np_})")
 
         stream = corpus.batches(4, n, seed=args.seed)
-        _sync(torch, dev)
+        _sync(dev)
         if dev == "cuda":
             torch.cuda.reset_peak_memory_stats()
         kernels.launches.clear()                  # counts to 0 just before
         t0 = time.perf_counter()
         params, state, hist = tr.fit(params, stream, args.train_steps,
                                      log_every=1, log_fn=None)
-        _sync(torch, dev)
+        _sync(dev)
         wall = time.perf_counter() - t0
         got_launches = dict(kernels.launches)     # just after
         peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
@@ -2748,12 +2804,301 @@ def phase_train(torch, kernels, args, dev="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the train -> COD-adapt -> serve recipe on trained weights
+# ---------------------------------------------------------------------------
+
+TRAINED_STEPS = 300                  # the recipe's --ar-steps / --pard-steps
+TRAINED_NEW = 48                     # new tokens of the uniform-batch runs
+TRAINED_T = 0.8                      # the sampled engine run
+PARD_FLOOR = 1.8                     # greedy PARD K 4 mean accepted
+SAMPLED_FLOOR = 1.3                  # sampled engine mean accepted
+
+
+def check_step_routes(torch, kernels, label, loss_fn, params, want, dev):
+    """One fp32 step's loss and gradients through the kernels against the
+    plain versions: loss, global gradient norm and |g_kernels - g_plain| /
+    |g_plain| within TOL["float32"]; the kernel route launches ``want``,
+    the plain route nothing."""
+    tol = TOL["float32"]
+    got, diff = _route_grads(torch, kernels, loss_fn, params)
+    (lk, gk, nk), (lp, gp, np_) = got["kernels"], got["plain"]
+    diff /= max(gp, 1e-30)
+    rel = max(abs(lk - lp) / max(abs(lp), 1e-30),
+              abs(gk - gp) / max(gp, 1e-30), diff)
+    log(f"[trained {label}] one step, kernels vs plain: loss {lk:.6f} / "
+        f"{lp:.6f}, grad norm {gk:.6f} / {gp:.6f}, |g_k - g_p| / |g_p| = "
+        f"{diff:.3e} (tol {tol:g}); launches {nk} (expected {want}), plain "
+        f"{np_}")
+    if not (rel <= tol and math.isfinite(lk)):
+        raise SmokeFailure(f"trained {label}: kernels and plain versions "
+                           f"disagree ({rel})")
+    if dev == "cuda" and (nk != want or any(np_.values())):
+        raise SmokeFailure(f"trained {label}: launches {nk} (plain {np_}), "
+                           f"expected {want}")
+
+
+def _losses(out):
+    """(params, Trainer history, meta) -> (params, losses, meta)."""
+    params, hist, meta = out
+    return params, [h["loss"] for h in hist], meta
+
+
+def trained_fit(torch, kernels, label, fn, want, dev):
+    """Run one training stage ``fn() -> (params, losses, meta)`` with the
+    counts set to 0 just before and read just after: exact launches, a
+    finite and falling loss. Returns (params, launches)."""
+    _sync(dev)
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    params, losses, _ = fn()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    got = dict(kernels.launches)
+    log(f"[trained {label}] {len(losses)} steps in {wall:.2f}s "
+        f"({len(losses) / wall:.1f} steps/s); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches={got} (expected {want})")
+    if dev == "cuda" and got != want:
+        raise SmokeFailure(f"trained {label}: launches {got}, expected "
+                           f"{want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise SmokeFailure(f"trained {label}: loss not finite and falling "
+                           f"({losses[0]} -> {losses[-1]})")
+    return params, got
+
+
+def trained_training(torch, kernels, corpus, dev):
+    """Phase 11 (a): bench-target, bench-draft and bench-mid AR, the
+    pard_k8_r07 adaptation of bench-draft and the EAGLE head on
+    bench-target, through the recipe's functions at its shapes and steps;
+    before each stage but bench-mid's, one step of the recipe's first
+    batch through the kernels and through the plain versions. Returns
+    (params by name, launches by stage)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cod import CodConfig
+    from repro_torch.core.eagle import eagle_loss, init_eagle
+    from repro_torch.examples import pard_adaptation_train as recipe
+    from repro_torch.interop import cast_params
+    from repro_torch.models import init_params
+
+    flash, pard = TRAIN_KERNELS["flash"], TRAIN_KERNELS["pard"]
+    params, launches = {}, {}
+    for name, seed in recipe.AR_RUNS:
+        cfg, steps = get_config(name), TRAINED_STEPS
+        if name != "bench-mid":
+            tr = recipe.trainer(cfg, steps, dev)
+            batch = tr.make_batch(next(corpus.batches(*recipe.AR_SHAPE,
+                                                      seed=seed)))
+            p0 = init_params(cfg, seed, dev, torch.float32)
+            check_step_routes(torch, kernels, f"{name} AR (D "
+                              f"{cfg.resolved_head_dim}, T "
+                              f"{recipe.AR_SHAPE[1] - 1})",
+                              lambda: tr.loss(p0, batch)[0], p0,
+                              {n: cfg.num_layers for n in flash}, dev)
+        params[name], launches[f"{name} AR"] = trained_fit(
+            torch, kernels, f"{name} AR", lambda: _losses(recipe.train_ar(
+                name, seed, steps, corpus, dev, log_every=1, log_fn=None)),
+            {n: cfg.num_layers * steps for n in flash}, dev)
+
+    dc = get_config("bench-draft")
+    tr = recipe.trainer(dc, TRAINED_STEPS, dev,
+                        cod=CodConfig(k=8, r=0.7, r_min=0.2))
+    batch = tr.make_batch(next(corpus.batches(*recipe.COD_SHAPE,
+                                              seed=recipe.COD_STREAM)),
+                          seed=0)
+    p0 = cast_params(params["bench-draft"], torch.float32)
+    check_step_routes(torch, kernels, f"pard_k8_r07 COD (D "
+                      f"{dc.resolved_head_dim}, packed T "
+                      f"{batch['segment'].shape[1]})",
+                      lambda: tr.loss(p0, batch)[0], p0,
+                      {n: dc.num_layers for n in pard}, dev)
+    params["pard_k8_r07"], launches["pard_k8_r07 COD"] = trained_fit(
+        torch, kernels, "pard_k8_r07 COD K 8", lambda: _losses(recipe.adapt(
+            params["bench-draft"], 8, 0.7, 0.2, True, TRAINED_STEPS, corpus,
+            dev, log_every=1, log_fn=None)),
+        {n: dc.num_layers * TRAINED_STEPS for n in pard}, dev)
+
+    tc, tp = get_config("bench-target"), params["bench-target"]
+    toks = torch.from_numpy(next(corpus.batches(
+        *recipe.EAGLE_SHAPE, seed=recipe.EAGLE_STREAM))).to(dev)
+    e0 = init_eagle(tc, recipe.EAGLE_SEED, dev, torch.float32)
+    check_step_routes(torch, kernels, f"eagle head on bench-target (D "
+                      f"{tc.resolved_head_dim}, T {recipe.EAGLE_SHAPE[1]})",
+                      lambda: eagle_loss(e0, tp, tc, toks)[0], e0,
+                      {flash[0]: tc.num_layers + 1, flash[1]: 1}, dev)
+    params["eagle_head"], launches["eagle head"] = trained_fit(
+        torch, kernels, "eagle head", lambda: recipe.train_eagle_head(
+            tp, tc, TRAINED_STEPS, corpus, dev, log_fn=None),
+        {flash[0]: (tc.num_layers + 1) * TRAINED_STEPS,
+         flash[1]: TRAINED_STEPS}, dev)
+    return params, launches
+
+
+def trained_generate(torch, kernels, params, prompt, dev):
+    """Phase 11 (b): the uniform batch on the trained pair, fp32 then
+    bf16, through ``_generate_runs``: AR, VSD (K 8, the unadapted draft),
+    flat PARD at K 4 and K 8, the PARD tree WIDE, EAGLE (K 4) and PARD K 4
+    with the unadapted draft, each with its exact attention launches.
+    Returns launches by run."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.quickstart import first_agreement
+    from repro_torch.interop import cast_params
+
+    tc, dc = get_config("bench-target"), get_config("bench-draft")
+    card, p = card_line(), prompt.shape[1]
+    x = torch.from_numpy(prompt).to(dev)
+    launches, toks, stats = {}, {}, {}
+    for dtype, kv in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        tp, dp, pp, ep = (cast_params(params[n], dtype) for n in
+                          ("bench-target", "bench-draft", "pard_k8_r07",
+                           "eagle_head"))
+        runs = _generate_runs(tp, tc, pp, dc, ep, ks=(4, 8), tree=WIDE,
+                              max_len=512, kv_dtype=kv, unadapted=dp)
+        for label, (k, fn) in runs.items():
+            fn(x, 2)                                  # warm-up, not counted
+            _sync(dev)
+            kernels.launches.clear()                  # counts to 0 just before
+            t0 = time.perf_counter()
+            out, st = fn(x, TRAINED_NEW)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            got = dict(kernels.launches)              # just after
+            want = generate_expected(label, tc, dc, st, k)
+            toks[kv, label], stats[kv, label] = out.cpu().numpy(), st
+            launches[f"{label} {kv}"] = got
+            log(f"[trained generate {kv}] {label}: {st.tokens_generated} "
+                f"tokens in {wall:.3f}s = {st.tokens_generated / wall:.1f} "
+                f"tok/s ({card}); iterations={st.iterations} "
+                f"draft_forwards={st.draft_forwards} "
+                f"target_forwards={st.target_forwards} "
+                f"mean_accepted={st.mean_accepted:.3f} launches={got} "
+                f"(expected {want})")
+            if out.shape != (len(prompt), p + TRAINED_NEW) or \
+                    st.tokens_generated != TRAINED_NEW * len(prompt):
+                raise SmokeFailure(f"trained generate {label} {kv}: bad "
+                                   f"output")
+            if dev == "cuda" and got != want:
+                raise SmokeFailure(f"trained generate {label} {kv}: "
+                                   f"launches {got}, expected {want}")
+        for label in runs:
+            if label == "ar":
+                continue
+            share = first_agreement(toks[kv, label], toks[kv, "ar"], p)
+            log(f"[trained generate {kv}] {label}: share of tokens equal "
+                f"to AR's up to the first divergence {share:.3f} (mean of "
+                f"{len(prompt)} rows)")
+            if kv == "fp32" and share != 1.0:
+                raise SmokeFailure(f"trained generate {label} fp32: tokens "
+                                   f"differ from AR's")
+    pard, base = stats["fp32", "pard k4"], stats["fp32", "pard k4 unadapted"]
+    log(f"[trained generate] greedy PARD K 4 mean accepted "
+        f"{pard.mean_accepted:.3f} (floor {PARD_FLOOR}), the unadapted "
+        f"bench-draft's {base.mean_accepted:.3f}")
+    if not (pard.mean_accepted >= PARD_FLOOR
+            and base.mean_accepted < pard.mean_accepted):
+        raise SmokeFailure(f"trained PARD K 4: mean accepted "
+                           f"{pard.mean_accepted} (floor {PARD_FLOOR}, "
+                           f"unadapted {base.mean_accepted})")
+    return launches
+
+
+def trained_engine(torch, kernels, params, args, dev):
+    """Phase 11 (c): the engine on the trained pair in fp32 over the
+    launcher's prompts (8 requests of 16 tokens, 48 new, max_batch 4):
+    paged PARD, AR, VSD (the unadapted draft), the paged adaptive tree,
+    and paged PARD at T = 0.8 twice; greedy runs equal AR, the sampled
+    run repeats bit for bit and keeps its mean accepted above
+    SAMPLED_FLOOR. Returns launches by run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import workload
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    tc, dc = get_config("bench-target"), get_config("bench-draft")
+    tp, dp, pp = (params[n] for n in ("bench-target", "bench-draft",
+                                      "pard_k8_r07"))
+    prompts = workload(argparse.Namespace(
+        seed=args.seed, requests=8, prompt_len=16, prefix_share=1),
+        tc.vocab_size)
+    base = dict(max_batch=4, max_len=512, kv_dtype="fp32", seed=args.seed)
+    runs = {"pard paged": (pp, {}), "ar": (None, dict(mode="ar")),
+            "vsd": (dp, dict(mode="vsd")),
+            "adaptive tree paged": (pp, dict(adaptive_tree=True)),
+            f"pard paged T={TRAINED_T}": (pp, dict(temperature=TRAINED_T)),
+            f"pard paged T={TRAINED_T} repeat": (pp, dict(
+                temperature=TRAINED_T))}
+    toks, infos, launches = {}, {}, {}
+    for label, (draft, kw) in runs.items():
+        toks[label], launches[label], infos[label] = serve(
+            torch, kernels, Engine, EngineConfig(**base, **kw), tp, tc,
+            draft, dc if draft is not None else None, prompts, TRAINED_NEW,
+            f"trained {label}", dev)
+    same = {label: all(np.array_equal(toks[label][r], t)
+                       for r, t in toks["ar"].items())
+            for label in ("pard paged", "vsd", "adaptive tree paged")}
+    sampled = f"pard paged T={TRAINED_T}"
+    repeat = all(np.array_equal(toks[sampled][r], t)
+                 for r, t in toks[sampled + " repeat"].items())
+    acc = infos[sampled]["mean_accepted"]
+    log(f"[trained engine] fp32 tokens == AR's: {same}; T={TRAINED_T} "
+        f"repeat bitwise equal: {repeat}; sampled mean accepted {acc:.3f} "
+        f"(floor {SAMPLED_FLOOR}); greedy PARD mean accepted "
+        f"{infos['pard paged']['mean_accepted']:.3f}, adaptive tree "
+        f"{infos['adaptive tree paged']['mean_accepted']:.3f}")
+    if not all(same.values()) or not repeat or not acc >= SAMPLED_FLOOR:
+        raise SmokeFailure(f"trained engine: == AR {same}, repeat {repeat}, "
+                           f"sampled mean accepted {acc}")
+    launches.pop(sampled + " repeat")
+    return launches
+
+
+def trained_independence(torch, params, prompt, dev):
+    """Phase 11 (d): one pard_k8_r07 draft against bench-target, bench-mid
+    and bench-draft at K 8 (the target-independence table), fp32: PARD's
+    tokens equal AR's for each."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import target_independence as ti
+    card = card_line()
+    dc = get_config("bench-draft")
+    for name in ti.TARGETS:
+        r = ti.independence_row(params["pard_k8_r07"], dc, name,
+                                params[name], get_config(name), prompt,
+                                torch.device(dev))
+        log(f"[trained independence] {name}: AR+ {r['ar_tok_s']:.1f} tok/s, "
+            f"PARD {r['pard_tok_s']:.1f} tok/s, speedup {r['speedup']:.2f}x, "
+            f"acceptance {r['acc']:.3f}, mean accepted "
+            f"{r['mean_accepted']:.3f}, lossless {r['lossless']} ({card})")
+        if not r["lossless"]:
+            raise SmokeFailure(f"trained independence {name}: PARD tokens "
+                               f"differ from AR's")
+
+
+def phase_trained(torch, kernels, args, dev="cuda"):
+    """The recipe of ``repro_torch.examples`` on the card: training through
+    the four training kernels, then the uniform batch, the engine and the
+    target-independence table on the weights it trained. Returns each
+    kernel's launches by run."""
+    import numpy as np
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.examples import pard_adaptation_train as recipe
+    corpus = MarkovCorpus(**recipe.CORPUS)
+    params, launches = trained_training(torch, kernels, corpus, dev)
+    prompt = corpus.prompts(np.random.default_rng(5), 4, 16)
+    launches.update(trained_generate(torch, kernels, params, prompt, dev))
+    launches.update(trained_engine(torch, kernels, params, args, dev))
+    trained_independence(torch, params, prompt, dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=256)
-    ap.add_argument("--max-new", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=20)
     args = ap.parse_args(argv)
 
@@ -2800,6 +3145,7 @@ def main(argv=None) -> int:
         errs.update(timed(phase_train_correctness, torch, args))
         timing.update(timed(phase_train_timing, torch, F, args))
         launches.update(timed(phase_train, torch, kernels, args))
+        trained = timed(phase_trained, torch, kernels, args)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2815,6 +3161,10 @@ def main(argv=None) -> int:
     for name in KERNELS:
         timing[name]["generate_launches"] = {
             label: got[name] for label, got in gen_launches.items()
+            if got.get(name)}
+        # phase 11's runs on trained weights
+        timing[name]["trained_launches"] = {
+            label: got[name] for label, got in trained.items()
             if got.get(name)}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{name}.cu",

@@ -174,7 +174,12 @@ def greedy_tree_accept_rows(logits, props, parent, depth, choice, anc,
                                    == darange[None, None])         # [B, N, D]
     tok_depth = (pick * props.long()[:, :, None]).sum(dim=1)       # [B, D]
     src_slot = (pick * slot_ids[None, 1:, None]).sum(dim=1)        # [B, D]
-    rank = torch.where(src_slot > 0, choice.long().gather(1, src_slot), -1)
+    # sampled siblings may repeat a token, so on rows that a mixed batch
+    # verifies by sampling (and discards here) two nodes of a depth can
+    # pass and their slots sum past the window: clamp the index, as JAX's
+    # gather does, instead of reading out of bounds
+    rank = torch.where(src_slot > 0,
+                       choice.long().gather(1, src_slot.clamp(max=s - 1)), -1)
     return a, tok_depth, src_slot, commit_tok, rank
 
 

@@ -14,3 +14,10 @@ def resolve_device(device=None) -> torch.device:
                                "port's plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU): a host clock read after it times the work, not its enqueue."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -12,7 +12,8 @@ bf16 storage equals the JAX code's ``.astype(x.dtype)`` at use.
 mlp}``, ``out_norm``). ``params_to_numpy`` is the inverse of both: the
 port's tree with every leaf a float32 numpy array (bf16 leaves widen
 exactly), for checkpoints and for handing trained weights back to the JAX
-package.
+package. ``cast_params`` stores a port tree (a model's or a head's) in
+another dtype, the norm scales left in float32.
 """
 from __future__ import annotations
 
@@ -65,3 +66,13 @@ def params_to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
     return tree.detach().to("cpu", torch.float32).numpy()
+
+
+def cast_params(tree, dtype, name: str = ""):
+    """A copy of port params (a model's or an EAGLE head's) stored in
+    ``dtype``, the float32 leaves (norm scales) kept float32."""
+    if isinstance(tree, dict):
+        return {k: cast_params(v, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_params(v, dtype, name) for v in tree]
+    return tree.detach().to(leaf_dtype(name, dtype), copy=True)

@@ -1,11 +1,17 @@
 """Serving launcher of the port: stand up the engine on random seeded
-weights and stream synthetic requests through it.
+weights, or on checkpoints, and stream synthetic requests through it.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --target llama3.1-8b --draft llama3.2-1b --requests 8 --max-new 128
+      --target llama3.1-8b --draft llama3.2-1b --requests 8 --max-new 128 \\
+      [--target-ckpt a.npz --draft-ckpt b.npz]
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
-the tiny-* configs there). ``--tree 2,2,1,1`` drafts a static candidate
+the tiny-* configs there). ``--target-ckpt`` / ``--draft-ckpt`` restore
+checkpoints of either package (``training.checkpoint``, e.g. what
+``repro_torch.examples.pard_adaptation_train`` writes) into the seeded
+weights. The prompts are drawn from the Markov corpus
+(``MarkovCorpus(vocab, seed=0, determinism=2.0)``), the same draws as the
+JAX launcher's for the same flags. ``--tree 2,2,1,1`` drafts a static candidate
 tree, ``--adaptive-tree`` picks per request from the default bank at depth
 ``--k``; ``--contiguous`` keeps full-length KV rows instead of the paged
 pool; ``--kv-dtype int8`` / ``fp8`` stores quantized KV; ``--mode vsd``
@@ -32,6 +38,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--target", required=True)
     ap.add_argument("--draft", default=None)
+    ap.add_argument("--target-ckpt", default=None,
+                    help="checkpoint restored into the target's weights")
+    ap.add_argument("--draft-ckpt", default=None,
+                    help="checkpoint restored into the draft's weights")
     ap.add_argument("--mode", default="pard", choices=["ar", "vsd", "pard"])
     ap.add_argument("--tree", default=None, metavar="B1,B2,...",
                     help="tree-structured PARD drafting: per-depth branching "
@@ -93,24 +103,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def workload(args, vocab_size: int):
-    """The prompts of the run, from ``--seed``: all unique of
-    ``--prompt-len`` tokens, or with ``--prefix-share N`` > 1, N requests
-    per system prompt of ``--prompt-len`` tokens, each followed by an
-    8-token tail of its own, the groups taken round-robin (as the JAX
-    launcher's shared-prefix mix): same-prefix requests arrive in
-    different batch generations, since concurrent identical prefixes
-    cannot hit (a block matches only once computed)."""
+    """The prompts of the run, drawn from the Markov corpus with
+    ``--seed``: all unique of ``--prompt-len`` tokens, or with
+    ``--prefix-share N`` > 1, N requests per system prompt of
+    ``--prompt-len`` tokens, each followed by an 8-token tail of its own,
+    the groups taken round-robin: same-prefix requests arrive in different
+    batch generations, since concurrent identical prefixes cannot hit (a
+    block matches only once computed). The draws are the JAX launcher's,
+    in its order: the system prompts first (drawn, and unused, with
+    ``--prefix-share 1`` too), then each request's prompt or tail."""
     import numpy as np
+
+    from repro_torch.data.pipeline import MarkovCorpus
+    corpus = MarkovCorpus(vocab_size=vocab_size, seed=0, determinism=2.0)
     rng = np.random.default_rng(args.seed)
     share = max(1, args.prefix_share)
-    if share == 1:
-        return [rng.integers(0, vocab_size, size=args.prompt_len)
-                for _ in range(args.requests)]
-    systems = [rng.integers(0, vocab_size, size=args.prompt_len)
+    systems = [corpus.prompts(rng, 1, args.prompt_len)[0]
                for _ in range(-(-args.requests // share))]
-    return [np.concatenate([systems[i % len(systems)],
-                            rng.integers(0, vocab_size, size=8)])
-            for i in range(args.requests)]
+    prompts = []
+    for i in range(args.requests):
+        if share > 1:
+            prompts.append(np.concatenate([systems[i % len(systems)],
+                                           corpus.prompts(rng, 1, 8)[0]]))
+        else:
+            prompts.append(corpus.prompts(rng, 1, args.prompt_len)[0])
+    return prompts
 
 
 def main(argv=None):
@@ -123,16 +140,21 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import init_params
     from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.training import checkpoint
 
     device = resolve_device(args.device)
     tc = get_config(args.target)
     tp = init_params(tc, args.seed, device, torch.bfloat16)
+    if args.target_ckpt:
+        tp = checkpoint.restore(args.target_ckpt, tp)
     dp = dc = None
     if args.mode != "ar":
         if not args.draft:
             raise SystemExit(f"--draft is required for --mode {args.mode}")
         dc = get_config(args.draft)
         dp = init_params(dc, args.seed + 1, device, torch.bfloat16)
+        if args.draft_ckpt:
+            dp = checkpoint.restore(args.draft_ckpt, dp)
     eng = Engine(tp, tc, dp, dc, config=EngineConfig.from_args(args),
                  device=device)
 

@@ -7,6 +7,7 @@ and the port, so it runs where JAX is not installed:
 """
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1469,3 +1470,50 @@ def test_tiny_generate_on_card_equals_cpu(cuda, kw):
         assert st.iterations == want[name][1].iterations, name
         if not kw:
             assert np.array_equal(toks, got["ar"][0]), name
+
+
+@functools.lru_cache(maxsize=None)
+def _trained_tiny():
+    """tiny-target, tiny-draft and the COD-adapted draft (K = 4) and an
+    EAGLE head, trained on the CPU in fp32 with the recipe's functions."""
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.examples import pard_adaptation_train as recipe
+    corpus = MarkovCorpus(**recipe.CORPUS)
+    quiet = dict(log_fn=None)
+    tp, _, _ = recipe.train_ar("tiny-target", 0, 30, corpus, "cpu", **quiet)
+    dp, _, _ = recipe.train_ar("tiny-draft", 1, 30, corpus, "cpu", **quiet)
+    pp, _, _ = recipe.adapt(dp, 4, 0.7, 0.2, True, 30, corpus, "cpu",
+                            cfg=get_config("tiny-draft"), **quiet)
+    ep, _, _ = recipe.train_eagle_head(tp, get_config("tiny-target"), 20,
+                                       corpus, "cpu", **quiet)
+    return tp, pp, ep
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(temperature=0.8)])
+def test_trained_tiny_generate_on_card_equals_cpu(cuda, kw):
+    """The port-trained tiny pair in fp32: generate_ar / generate_spec
+    (pard, vsd, tree) and EAGLE commit the CPU port's tokens on the card;
+    drafts get accepted; greedy, every path equals AR."""
+    got = _tiny_generate(cuda, _trained_tiny(), **kw)
+    want = _tiny_generate("cpu", _trained_tiny(), **kw)
+    for name, (toks, st) in got.items():
+        assert np.array_equal(toks, want[name][0]), name
+        assert st.iterations == want[name][1].iterations, name
+        if name != "ar":
+            assert st.mean_accepted > 1.0, name
+        if not kw:
+            assert np.array_equal(toks, got["ar"][0]), name
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(adaptive_tree=True)])
+def test_trained_tiny_engine_on_card_equals_cpu(cuda, kw):
+    """The trained pair in the paged PARD and adaptive-tree engines (a
+    greedy and two sampled requests at T = 0.8): the card's tokens equal
+    the CPU port's request by request."""
+    tp, pp, _ = _trained_tiny()
+    tc, dc = get_config("tiny-target"), get_config("tiny-draft")
+    want = _sampled_tiny_tokens("cpu", (tc, tp, dc, pp), **kw)
+    got = _sampled_tiny_tokens(cuda, (tc, _tree_to(tp, cuda), dc,
+                                      _tree_to(pp, cuda)), **kw)
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], want[i])
