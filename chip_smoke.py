@@ -11,7 +11,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from ``src/repro_torch/csrc`` in parallel (one ``nvcc -Xptxas -v``
      each): decode_attention_paged, decode_attention, tree_attention_paged,
      tree_attention, flash_attention(_bwd), pard_attention(_bwd),
-     ssd_chunked; for the training kernels, the four serving kernels and
+     ssd_chunked, ssd_chunked_bwd; for the training kernels, the four serving kernels and
      ssd_chunked each bf16 instance's registers and spills (a spill fails;
      48 serving instances: 4 kernels x 4 head dims x 3 K/V dtypes (bf16,
      int8, fp8 e4m3), each named with its mask, K/V addressing and K/V
@@ -167,14 +167,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      paged PARD at T = 0.8 repeated bit for bit with mean accepted >=
      1.3, each with its exact paged launches; then the
      target-independence table (pard_k8_r07 against bench-target,
-     bench-mid and bench-draft at K 8, lossless).
+     bench-mid and bench-draft at K 8, lossless);
+ 12. Mamba2 training (run after phase 11): the SSD scan's backward kernel
+     through torch.autograd against ``ssd_chunked_bwd_ref`` and against
+     autograd of ``ssd_chunked_ref`` (every gradient, bf16 and fp32) at
+     mamba2-130m's training shape (b 4, t 1024, h 24, P 64, N 128, chunk
+     64), a ragged tail (b 1, t 1000), t = 1, tiny-ssm's shape, an init
+     state with a final-state cotangent and a ragged P block, one forward
+     and one backward launch a call, two backward calls bitwise equal,
+     finite gradients at dt = 20, A = -16; forward and backward times at
+     the training shape beside the bound and the plain versions; then
+     mamba2-130m at full width and all 24 layers (random weights from
+     --seed, f32 params and moments, bf16 activations, the launcher's
+     trainer at peak 1e-3): one B=1 step through the kernels and through
+     the plain versions (loss and grad norm within 2e-2), --train-steps AR
+     steps at B 4, N 1024 through ``Trainer.fit`` with 24 ssd_chunked and
+     24 ssd_chunked_bwd launches a step and a finite, falling loss, and one
+     more step cut into forward + loss, backward and AdamW; tiny-ssm and
+     the dense hybrid in fp32 (one step kernels vs plain within 1e-4, 3
+     Trainer steps equal to the CPU port's within 1e-4); a PARD Trainer on
+     tiny-ssm refused with ValueError.
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers (a serving-attention kernel's row also lists every timing row of
 phase 4 under ``timings``, and its int8 and fp8 routes' error, launches
 and times under ``int8`` / ``fp8``; every row lists its launches in each
 run of phase 10 under ``generate_launches`` and of phase 11 under
-``trained_launches``) and the result line ``{"ok":
+``trained_launches``; the two SSD rows their launches in phase 12's
+mamba2-130m run under ``train_launches``) and the result line ``{"ok":
 true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -207,6 +227,7 @@ REPLACES = {                         # kernel -> the TPU kernel it ports
     "pard_attention": "src/repro/kernels/pard_attention.py:73",
     "pard_attention_bwd": "src/repro/kernels/pard_attention.py:73",
     "ssd_chunked": "src/repro/kernels/ssd.py:70",
+    "ssd_chunked_bwd": "src/repro/kernels/ssd.py:70",
 }
 KERNELS = tuple(REPLACES)
 TRAIN_KERNELS = {"flash": ("flash_attention", "flash_attention_bwd"),
@@ -627,12 +648,12 @@ def _sync(dev):
     synchronize(dev)
 
 
-def _tree_to(tree, dev):
+def _tree_to(tree, dev, copy=False):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, dev) for k, v in tree.items()}
+        return {k: _tree_to(v, dev, copy) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree_to(v, dev) for v in tree]
-    return tree.to(dev)
+        return [_tree_to(v, dev, copy) for v in tree]
+    return tree.to(dev, copy=copy)
 
 
 def correctness_cases(torch):
@@ -2643,15 +2664,25 @@ def phase_train_timing(torch, F, args, dev="cuda"):
     return results
 
 
+def _plain_ssd(x, dt, A, B, C, init_state=None, *, chunk=64):
+    """``ssd_chunked`` through its plain version on any device (autograd
+    differentiates it)."""
+    from repro_torch.kernels import ssd
+    return ssd.ssd_chunked_ref(x, dt, A, B, C, init_state,
+                               chunk=ssd.clamp_chunk(chunk, x.shape[1]))
+
+
 def _route_grads(torch, kernels, loss_fn, params):
     """Loss, global gradient norm and launches of ``loss_fn()`` through the
-    kernels and through the plain versions (the model's attention module
-    pointed at them for the second run), and |g_kernels - g_plain|, taken
-    one leaf at a time: only the kernel route's gradients are kept, not
-    copied, while the plain route's come in."""
+    kernels and through the plain versions (the model's attention and
+    Mamba2 modules pointed at them for the second run), and |g_kernels -
+    g_plain|, taken one leaf at a time: only the kernel route's gradients
+    are kept, not copied, while the plain route's come in."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pard_attention as pa
+    from repro_torch.kernels import ssd
     from repro_torch.models import attention as model_attention
+    from repro_torch.models import ssm as model_ssm
     from repro_torch.training.optimizer import leaves
     got, kept, diff2 = {}, [], 0.0
     try:
@@ -2661,6 +2692,7 @@ def _route_grads(torch, kernels, loss_fn, params):
                 model_attention.pard_attention = (
                     lambda q, k, v, info, **kw: pa.pard_attention_ref(
                         q, k, v, info.segment, info.base, **kw))
+                model_ssm.ssd_chunked = _plain_ssd
             for p in leaves(params):
                 p.requires_grad_(True)
                 p.grad = None
@@ -2682,6 +2714,7 @@ def _route_grads(torch, kernels, loss_fn, params):
     finally:
         model_attention.flash_attention = fa.flash_attention
         model_attention.pard_attention = pa.pard_attention
+        model_ssm.ssd_chunked = ssd.ssd_chunked
         for p in leaves(params):
             p.requires_grad_(False)
             p.grad = None
@@ -2710,20 +2743,98 @@ def step_parts_ms(torch, tr, params, state, batch):
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
 
-def phase_train(torch, kernels, args, dev="cuda"):
-    """llama3.2-1b at full width: a B=1 step through the kernels and the
-    plain versions, then the AR and PARD runs of ``Trainer.fit``."""
+def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
+                    dev="cuda"):
+    """One full-width training cell with the trainer that
+    ``repro_torch.launch.train`` makes from ``flags``, from --seed weights:
+    a B=1 step through the kernels and through the plain versions (loss and
+    global grad norm within 2e-2, the gradient difference printed), then
+    --train-steps steps at B 4, N ``n`` through ``Trainer.fit`` with one
+    launch of each kernel in ``names`` per layer per step and a finite,
+    falling loss, and one more step cut into forward + loss, backward and
+    AdamW. Returns the launches of the fit."""
     import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import MarkovCorpus
     from repro_torch.launch import train as launch_train
     from repro_torch.models import init_params
+
+    tr = launch_train.make_trainer(
+        launch_train.build_parser().parse_args(flags), cfg, dev)
+    params = init_params(cfg, args.seed, dev, torch.float32)
+    one = tr.make_batch(corpus.sample(np.random.default_rng(args.seed + 5),
+                                      1, n), seed=args.seed)
+    got, diff = compare_plain_step(torch, kernels, tr, params, one)
+    (lk, gk, nk), (lp, gp, np_) = got["kernels"], got["plain"]
+    rel = max(abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
+    log(f"[{tag}] B=1 N={n} one step on the card: loss kernels {lk:.6f} "
+        f"plain {lp:.6f}; grad norm kernels {gk:.6f} plain {gp:.6f}; max rel "
+        f"diff {rel:.3e} (tol 2e-2); |g_k - g_p| / |g_p| = "
+        f"{diff / max(gp, 1e-30):.3e}; launches kernels {nk} plain {np_}")
+    if not (rel <= 2e-2 and math.isfinite(lk) and math.isfinite(gk)):
+        raise SmokeFailure(f"{tag}: kernels and plain versions disagree "
+                           f"(rel {rel})")
+    if np_ or not all(nk.get(name) for name in names):
+        raise SmokeFailure(f"{tag}: the routes did not take the intended "
+                           f"kernels ({nk} / {np_})")
+
+    stream = corpus.batches(4, n, seed=args.seed)
+    _sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()                  # counts to 0 just before
+    t0 = time.perf_counter()
+    params, state, hist = tr.fit(params, stream, args.train_steps,
+                                 log_every=1, log_fn=None)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    got_launches = dict(kernels.launches)     # just after
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    steps = len(hist)
+    want = {name: cfg.num_layers * steps for name in names}
+    losses = [h["loss"] for h in hist]
+    walls = [0.0] + [h["wall"] for h in hist]
+    step_ms = np.diff(walls) * 1e3
+    steady = step_ms[1:]
+    tok_s = (hist[-1]["tokens"] - hist[0]["tokens"]) / (
+        hist[-1]["wall"] - hist[0]["wall"])
+    packed = one["segment"].shape[1] if "segment" in one else n - 1
+    log(f"[{tag}] {cfg.name} full width, {cfg.num_layers} layers, B=4 N={n} "
+        f"(T={packed}), {steps} steps in {wall:.2f}s; loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}; step ms p50 {np.percentile(steady, 50):.2f} "
+        f"p95 {np.percentile(steady, 95):.2f} (steps 2-{steps}; step 1 "
+        f"{step_ms[0]:.1f}); trained tokens/s {tok_s:.0f} (steps "
+        f"2-{steps}, {hist[-1]['tokens']} tokens in all); peak_mem "
+        f"{peak / 2**30:.2f}GiB; grad_norm {hist[0]['grad_norm']:.3f} -> "
+        f"{hist[-1]['grad_norm']:.3f}; launches={got_launches} (expected "
+        f"{want})")
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}")
+    if dev == "cuda":
+        parts = step_parts_ms(torch, tr, params, state, tr.make_batch(
+            next(stream), seed=args.train_steps))
+        log(f"[{tag}] one more step on the device timeline: forward + loss "
+            f"{parts[0]:.2f} ms, backward {parts[1]:.2f} ms, AdamW "
+            f"{parts[2]:.2f} ms (sum {sum(parts):.2f} ms)")
+    if got_launches != want:
+        raise SmokeFailure(f"{tag}: launches {got_launches}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise SmokeFailure(f"{tag}: loss not finite and falling "
+                           f"({losses[0]} -> {losses[-1]})")
+    del params, state, tr
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return got_launches
+
+
+def phase_train(torch, kernels, args, dev="cuda"):
+    """llama3.2-1b at full width: the AR and PARD cells of
+    ``full_width_cell``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
 
     cfg = get_config(TRAIN_MODEL)
     corpus = MarkovCorpus(vocab_size=cfg.vocab_size, seed=0, determinism=2.0)
     launches = {}
     for kind, n in TRAIN_SEQ.items():
-        fwd_name, bwd_name = TRAIN_KERNELS["flash" if kind == "ar" else "pard"]
         flags = ["--arch", TRAIN_MODEL, "--steps", str(args.train_steps),
                  "--batch", "4", "--seq", str(n), "--seed", str(args.seed),
                  "--lr", str(TRAIN_LR), "--device", dev,
@@ -2731,76 +2842,10 @@ def phase_train(torch, kernels, args, dev="cuda"):
         if kind == "pard":
             flags += ["--pard", "--k", str(COD[0]), "--r", str(COD[1]),
                       "--r-min", str(COD[2])]
-        tr = launch_train.make_trainer(
-            launch_train.build_parser().parse_args(flags), cfg, dev)
-        params = init_params(cfg, args.seed, dev, torch.float32)
-
-        one = tr.make_batch(corpus.sample(np.random.default_rng(args.seed + 5),
-                                          1, n), seed=args.seed)
-        got, diff = compare_plain_step(torch, kernels, tr, params, one)
-        (lk, gk, nk), (lp, gp, np_) = got["kernels"], got["plain"]
-        rel = max(abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
-        log(f"[train {kind}] B=1 N={n} one step on the card: loss kernels "
-            f"{lk:.6f} plain {lp:.6f}; grad norm kernels {gk:.6f} plain "
-            f"{gp:.6f}; max rel diff {rel:.3e} (tol 2e-2); |g_k - g_p| / "
-            f"|g_p| = {diff / max(gp, 1e-30):.3e}; launches kernels {nk} "
-            f"plain {np_}")
-        if not (rel <= 2e-2 and math.isfinite(lk) and math.isfinite(gk)):
-            raise SmokeFailure(f"train {kind}: kernels and plain versions "
-                               f"disagree (rel {rel})")
-        if np_ or not nk.get(fwd_name) or not nk.get(bwd_name):
-            raise SmokeFailure(f"train {kind}: the routes did not take the "
-                               f"intended attention ({nk} / {np_})")
-
-        stream = corpus.batches(4, n, seed=args.seed)
-        _sync(dev)
-        if dev == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        kernels.launches.clear()                  # counts to 0 just before
-        t0 = time.perf_counter()
-        params, state, hist = tr.fit(params, stream, args.train_steps,
-                                     log_every=1, log_fn=None)
-        _sync(dev)
-        wall = time.perf_counter() - t0
-        got_launches = dict(kernels.launches)     # just after
-        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
-        steps = len(hist)
-        want = {fwd_name: cfg.num_layers * steps,
-                bwd_name: cfg.num_layers * steps}
-        losses = [h["loss"] for h in hist]
-        walls = [0.0] + [h["wall"] for h in hist]
-        step_ms = np.diff(walls) * 1e3
-        steady = step_ms[1:]
-        tok_s = (hist[-1]["tokens"] - hist[0]["tokens"]) / (
-            hist[-1]["wall"] - hist[0]["wall"])
-        log(f"[train {kind}] {TRAIN_MODEL} full width, B=4 N={n} "
-            f"(T={one['segment'].shape[1] if kind == 'pard' else n - 1}), "
-            f"{steps} steps in {wall:.2f}s; loss {losses[0]:.4f} -> "
-            f"{losses[-1]:.4f}; step ms p50 {np.percentile(steady, 50):.2f} "
-            f"p95 {np.percentile(steady, 95):.2f} (steps 2-{steps}; step 1 "
-            f"{step_ms[0]:.1f}); trained tokens/s {tok_s:.0f} (steps "
-            f"2-{steps}, {hist[-1]['tokens']} tokens in all); peak_mem "
-            f"{peak / 2**30:.2f}GiB; grad_norm {hist[0]['grad_norm']:.3f} -> "
-            f"{hist[-1]['grad_norm']:.3f}; launches={got_launches} "
-            f"(expected {want})")
-        log(f"[train {kind}] losses {[round(x, 4) for x in losses]}")
-        if dev == "cuda":
-            parts = step_parts_ms(torch, tr, params, state, tr.make_batch(
-                next(stream), seed=args.train_steps))
-            log(f"[train {kind}] one more step on the device timeline: "
-                f"forward + loss {parts[0]:.2f} ms, backward {parts[1]:.2f} "
-                f"ms, AdamW {parts[2]:.2f} ms (sum {sum(parts):.2f} ms)")
-        if got_launches != want:
-            raise SmokeFailure(f"train {kind}: launches {got_launches}, "
-                               f"expected {want}")
-        if not all(math.isfinite(x) for x in losses) or \
-                not losses[-1] < losses[0]:
-            raise SmokeFailure(f"train {kind}: loss not finite and falling "
-                               f"({losses[0]} -> {losses[-1]})")
-        launches.update(got_launches)
-        del params, state, tr
-        if dev == "cuda":
-            torch.cuda.empty_cache()
+        launches.update(full_width_cell(
+            torch, kernels, args, cfg, corpus, flags, n,
+            TRAIN_KERNELS["flash" if kind == "ar" else "pard"],
+            f"train {kind}", dev))
     return launches
 
 
@@ -2815,26 +2860,27 @@ PARD_FLOOR = 1.8                     # greedy PARD K 4 mean accepted
 SAMPLED_FLOOR = 1.3                  # sampled engine mean accepted
 
 
-def check_step_routes(torch, kernels, label, loss_fn, params, want, dev):
+def check_step_routes(torch, kernels, label, loss_fn, params, want, dev,
+                      tag="trained"):
     """One fp32 step's loss and gradients through the kernels against the
     plain versions: loss, global gradient norm and |g_kernels - g_plain| /
     |g_plain| within TOL["float32"]; the kernel route launches ``want``,
-    the plain route nothing."""
+    the plain route nothing. Lines are logged under ``[tag label]``."""
     tol = TOL["float32"]
     got, diff = _route_grads(torch, kernels, loss_fn, params)
     (lk, gk, nk), (lp, gp, np_) = got["kernels"], got["plain"]
     diff /= max(gp, 1e-30)
     rel = max(abs(lk - lp) / max(abs(lp), 1e-30),
               abs(gk - gp) / max(gp, 1e-30), diff)
-    log(f"[trained {label}] one step, kernels vs plain: loss {lk:.6f} / "
+    log(f"[{tag} {label}] one step, kernels vs plain: loss {lk:.6f} / "
         f"{lp:.6f}, grad norm {gk:.6f} / {gp:.6f}, |g_k - g_p| / |g_p| = "
         f"{diff:.3e} (tol {tol:g}); launches {nk} (expected {want}), plain "
         f"{np_}")
     if not (rel <= tol and math.isfinite(lk)):
-        raise SmokeFailure(f"trained {label}: kernels and plain versions "
+        raise SmokeFailure(f"{tag} {label}: kernels and plain versions "
                            f"disagree ({rel})")
     if dev == "cuda" and (nk != want or any(np_.values())):
-        raise SmokeFailure(f"trained {label}: launches {nk} (plain {np_}), "
+        raise SmokeFailure(f"{tag} {label}: launches {nk} (plain {np_}), "
                            f"expected {want}")
 
 
@@ -3093,6 +3139,338 @@ def phase_trained(torch, kernels, args, dev="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: Mamba2 training through the SSD scan's backward kernel
+# ---------------------------------------------------------------------------
+
+SSD_TRAIN = dict(b=4, t=1024, h=24, p=64, n=128, chunk=64)   # mamba2-130m
+# label -> (shape, init state and final-state cotangent)
+SSD_GRAD_CASES = {
+    "mamba2-130m training shape": (SSD_TRAIN, False),
+    "ragged tail b=1 t=1000": (dict(SSD_TRAIN, b=1, t=1000), False),
+    "t=1": (dict(SSD_TRAIN, t=1), False),
+    "tiny-ssm t=9": (dict(b=2, t=9, h=4, p=32, n=16, chunk=8), False),
+    "init state + final-state cotangent t=100": (dict(SSD_TRAIN, b=2, t=100),
+                                                 True),
+    "P-block edge t=50": (dict(SSD_EDGE, b=2, t=50, chunk=16), True),
+}
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def _ssd_grad_inputs(torch, gen, dev, *, b, t, h, p, n, chunk, dtype, full):
+    """An ssd_case that requires grad, with a cotangent dy (x's dtype) and,
+    with ``full``, a nonzero init state and a final-state cotangent."""
+    c = ssd_case(torch, gen, b=b, t=t, h=h, p=p, n=n, dtype=dtype,
+                 chunk=chunk, init=full, dev=dev)
+    dy = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
+    ds = torch.randn(b, h, p, n, generator=gen, device=dev) if full else None
+    return c, dy, ds
+
+
+def _ssd_f64(torch, c, dy, ds):
+    """float64 copies of one case's inputs and cotangents: the plain
+    versions run on them in float64 give the exact gradient of these
+    values."""
+    c = {k: v.double() if torch.is_tensor(v) else v for k, v in c.items()}
+    return c, dy.double(), None if ds is None else ds.double()
+
+
+def _ssd_autograd(torch, fn, c, dy, ds):
+    """The gradients of ``fn`` (ssd_chunked or ssd_chunked_ref) through
+    torch.autograd, in ``SSD_GRADS`` order (dinit None without an init
+    state)."""
+    ins = [a.detach().requires_grad_(True) for a in _ssd_args(c)
+           if a is not None]
+    y, st = fn(*ins, *([None] * (6 - len(ins))), chunk=c["chunk"])
+    outs, cots = ([y, st], [dy, ds]) if ds is not None else ([y], [dy])
+    got = torch.autograd.grad(outs, ins, cots)
+    return list(got) + [None] * (6 - len(got))
+
+
+def _grad_err(torch, got, want, tol, ulps):
+    """(max |got - want| / bound, max |got - want|) with the bound tol *
+    max(1, |want|) + ``ulps`` float32 ulps of max |want| per entry."""
+    diff = (got.double() - want).abs()
+    floor = ulps * 2.0 ** -23 * want.abs().max().item()
+    return ((diff / (tol * want.abs().clamp(min=1.0) + floor)).max().item(),
+            diff.max().item())
+
+
+def _f32_plain_distance(torch, ssd, c, dy, ds, chunk, kernel, exact):
+    """max |g - exact| / max(1, |exact|) per gradient of the kernel and of
+    the float32 plain versions (``ssd_chunked_bwd_ref`` and autograd of
+    ``ssd_chunked_ref``), as one log line: how near float32 can come."""
+    routes = {"kernel": kernel,
+              "ssd_chunked_bwd_ref f32": ssd.ssd_chunked_bwd_ref(
+                  *_ssd_args(c), dy, ds, chunk=chunk),
+              "autograd of ssd_chunked_ref f32": _ssd_autograd(
+                  torch, lambda *a, chunk: ssd.ssd_chunked_ref(
+                      *a, chunk=ssd.clamp_chunk(chunk, a[0].shape[1])),
+                  c, dy, ds)}
+    log("[ssd grad] float32 at the training shape, max |err| / max(1, "
+        "|exact|) against the float64 gradient: " + "; ".join(
+            f"{route} " + ", ".join(
+                f"{name} {_grad_err(torch, g, w, 1.0, 0)[0]:.2e}"
+                for name, g, w in zip(SSD_GRADS, grads, exact)
+                if g is not None)
+            for route, grads in routes.items()))
+
+
+def phase_ssd_grad(torch, kernels, args, dev="cuda"):
+    """Phase 12 (a): the SSD backward kernel through torch.autograd against
+    ``ssd_chunked_bwd_ref`` and against autograd of ``ssd_chunked_ref``,
+    every gradient, bf16 and fp32, at ``SSD_GRAD_CASES``; one forward and
+    one backward launch per call; two backward calls bitwise equal; finite
+    gradients at dt = 20, A = -16. Returns the largest max abs error.
+
+    The plain versions run in float64 on the inputs' values: the exact
+    gradient, not a second float32 rounding of it. Each entry must lie
+    within TOL * max(1, |plain|); in fp32 plus 2 float32 ulps of the
+    gradient's largest entry: at the training shape the gradients reach
+    ~1e3 and an entry near 1 (ddt) is a sum of terms that large, which no
+    float32 computation holds to 1e-4: at the fp32 training-shape case the
+    float32 plain versions' own distance from the float64 gradient is
+    printed beside the kernel's (``_f32_plain_distance``)."""
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 29)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dtype).split(".")[1]]
+        for label, (dims, full) in SSD_GRAD_CASES.items():
+            c, dy, ds = _ssd_grad_inputs(torch, gen, dev, dtype=dtype,
+                                         full=full, **dims)
+            chunk = ssd.clamp_chunk(c["chunk"], dims["t"])
+            before = dict(kernels.launches)
+            got = _ssd_autograd(torch, ssd.ssd_chunked, c, dy, ds)
+            _sync(dev)
+            n_fwd = kernels.launches["ssd_chunked"] - before.get(
+                "ssd_chunked", 0)
+            n_bwd = kernels.launches["ssd_chunked_bwd"] - before.get(
+                "ssd_chunked_bwd", 0)
+            c64, dy64, ds64 = _ssd_f64(torch, c, dy, ds)
+            ref = ssd.ssd_chunked_bwd_ref(*_ssd_args(c64), dy64, ds64,
+                                          chunk=chunk)
+            auto = _ssd_autograd(torch, lambda *a, chunk: ssd.ssd_chunked_ref(
+                *a, chunk=ssd.clamp_chunk(chunk, a[0].shape[1])), c64, dy64,
+                ds64)
+            ulps = 2 if dtype == torch.float32 else 0
+            errs = {}
+            for name, g, r, a in zip(SSD_GRADS, got, ref, auto):
+                if g is None:
+                    continue
+                if not torch.isfinite(g).all():
+                    raise SmokeFailure(f"ssd_chunked_bwd {name} not finite "
+                                       f"({label} {dtype})")
+                errs[name] = (_grad_err(torch, g, r, tol, ulps),
+                              _grad_err(torch, g, a, tol, ulps))
+            worst = max(worst, *(e[0][1] for e in errs.values()))
+            log(f"[ssd grad] {label} {dtype} chunk={chunk}: launches fwd "
+                f"{n_fwd} bwd {n_bwd}; max_abs_err vs bwd_ref / vs autograd "
+                f"of the plain scan (both float64), worst err / bound: "
+                + ", ".join(f"{k} {v[0][1]:.3e} / {v[1][1]:.3e} "
+                            f"({max(v[0][0], v[1][0]):.3f})"
+                            for k, v in errs.items())
+                + f" (bound {tol:g} * max(1, |plain|)"
+                + (f" + {ulps} ulps of max |plain|)" if ulps else ")"))
+            bad = {k: max(v[0][0], v[1][0]) for k, v in errs.items()
+                   if not max(v[0][0], v[1][0]) <= 1.0}
+            if bad:
+                raise SmokeFailure(f"ssd_chunked_bwd disagrees with its plain "
+                                   f"version ({label} {dtype}): {bad}")
+            if (n_fwd, n_bwd) != (1, 1):
+                raise SmokeFailure(f"ssd grad {label}: launches fwd {n_fwd} "
+                                   f"bwd {n_bwd}, expected 1 and 1")
+            if dtype == torch.float32 and dims is SSD_TRAIN:
+                _f32_plain_distance(torch, ssd, c, dy, ds, chunk, got, ref)
+        c, dy, ds = _ssd_grad_inputs(torch, gen, dev, dtype=dtype, full=True,
+                                     **SSD_TRAIN)
+        first, second = (ssd.ssd_chunked_bwd(*_ssd_args(c), dy, ds,
+                                             chunk=c["chunk"])
+                         for _ in range(2))
+        _sync(dev)
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        c["dt"].fill_(20.0)
+        c["A"].fill_(-16.0)
+        big = ssd.ssd_chunked_bwd(*_ssd_args(c), dy, ds, chunk=c["chunk"])
+        finite = all(bool(torch.isfinite(g).all()) for g in big)
+        log(f"[ssd grad] {dtype} training shape: two backward calls bitwise "
+            f"equal: {same}; dt = 20, A = -16: gradients finite: {finite}")
+        if not (same and finite):
+            raise SmokeFailure(f"ssd_chunked_bwd: repeat {same}, finite at a "
+                               f"large |dt A| {finite} ({dtype})")
+        del c, dy, ds, first, second, big
+    return worst
+
+
+def ssd_bwd_bound_ms(c, full):
+    """Least time on the card for one backward call: bytes (x, dt, A, B, C,
+    dy and, with ``full``, the init state and the final-state cotangent read
+    once; dx, ddt, dA, dB, dC and dinit written once; nothing saved by the
+    forward) at the memory rate, vs the multiply-adds of the gradient (per
+    chunk of l real tokens and head: over the l(l+1)/2 pairs C.B, dy.xdt
+    and the three intra-chunk products, 3N + 2P; per token the state
+    recomputation and the five state products, 6 P N) at the peak rate of
+    x's type; the larger of the two."""
+    x, bm = c["x"], c["B"]
+    b, t, h, p = x.shape
+    n = bm.shape[-1]
+    el = x.element_size()
+    state = b * h * p * n * 4
+    nbytes = (3 * x.numel() * el + 4 * bm.numel() * el + 2 * c["dt"].numel() * 4
+              + 2 * c["A"].numel() * 4 + state * (3 if full else 1))
+    macs = sum(l * (l + 1) // 2 * (3 * n + 2 * p) + 6 * l * p * n
+               for l in (min(c["chunk"], t - c0)
+                         for c0 in range(0, t, c["chunk"])))
+    t_ops = 2 * macs * b * h / PEAK_OPS[str(x.dtype).split(".")[1]]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+
+
+def phase_ssd_grad_timing(torch, args, dev="cuda"):
+    """Phase 12 (b): forward and backward at mamba2-130m's training shape
+    (b 4, t 1024, h 24, P 64, N 128, chunk 64), bf16 and fp32, by device
+    time from a CUDA graph over rotating input sets (eager beside), beside
+    the bound and the plain versions' eager times. No single PyTorch call
+    computes this scan or its gradient: library none."""
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        sets = []
+        while not sets or sum(s[0]["x"].numel() * s[0]["x"].element_size()
+                              for s in sets) * 2 < COLD_BYTES:
+            sets.append(_ssd_grad_inputs(torch, gen, dev, dtype=dtype,
+                                         full=False, **SSD_TRAIN))
+
+        def fwd(s):
+            return ssd.ssd_chunked(*_ssd_args(s[0]), chunk=s[0]["chunk"])
+
+        def bwd(s):
+            return ssd.ssd_chunked_bwd(*_ssd_args(s[0]), s[1], s[2],
+                                       chunk=s[0]["chunk"])
+
+        def plain_bwd(s):
+            return ssd.ssd_chunked_bwd_ref(*_ssd_args(s[0]), s[1], s[2],
+                                           chunk=s[0]["chunk"])
+
+        rows = {}
+        for kind, fn, plain in (
+                ("fwd", fwd, lambda s: ssd.ssd_chunked_ref(
+                    *_ssd_args(s[0]), chunk=s[0]["chunk"])),
+                ("bwd", bwd, plain_bwd)):
+            ms = graph_ms(torch, fn, sets, 20)
+            eager = time_ms(torch, fn, sets, 10)
+            plain_ms = time_ms(torch, plain, sets, 3)
+            bnd, by = (ssd_bound_ms(sets[0][0]) if kind == "fwd"
+                       else ssd_bwd_bound_ms(sets[0][0], False))
+            rows[kind] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
+                              bound_ms=bnd, bound_by=by)
+            log(f"[timing] ssd_chunked {kind} training shape b=4 t=1024 H=24 "
+                f"P=64 N=128 chunk=64 {dtype}: kernel {ms:.4f} ms (eager "
+                f"{eager:.4f}), plain {plain_ms:.4f} ms, library none, bound "
+                f"{bnd:.5f} ms ({by}); device time from a CUDA graph of "
+                f"{len(sets)} input sets")
+        out[str(dtype).split(".")[1]] = rows
+        del sets
+        torch.cuda.empty_cache()
+    bf = out["bfloat16"]["bwd"]
+    return {"ssd_chunked_bwd": dict(
+        ms=bf["ms"], plain_ms=bf["plain_ms"], library_ms=None,
+        bound_ms=bf["bound_ms"], bound_by=bf["bound_by"],
+        timings=[dict(row, label=f"{kind} {dt} training shape")
+                 for dt, rows in out.items() for kind, row in rows.items()])}
+
+
+def ssm_train_mamba(torch, kernels, args, dev="cuda"):
+    """Phase 12 (c): mamba2-130m at full width and all 24 layers (random
+    weights from --seed, f32 params and AdamW moments, bf16 activations,
+    the launcher's trainer at peak lr ``TRAIN_LR``) as a
+    ``full_width_cell``: 24 ssd_chunked and 24 ssd_chunked_bwd launches a
+    step. Returns the launches of the fit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+
+    cfg = get_config(SSM_MODEL)
+    n = SSD_TRAIN["t"]
+    flags = ["--arch", SSM_MODEL, "--steps", str(args.train_steps), "--batch",
+             "4", "--seq", str(n), "--seed", str(args.seed), "--lr",
+             str(TRAIN_LR), "--device", dev, "--dtype", "bfloat16"]
+    return full_width_cell(
+        torch, kernels, args, cfg,
+        MarkovCorpus(vocab_size=cfg.vocab_size, seed=0, determinism=2.0),
+        flags, n, ("ssd_chunked", "ssd_chunked_bwd"), "train ssm", dev)
+
+
+def ssm_train_tiny(torch, kernels, args, dev="cuda"):
+    """Phase 12 (d): tiny-ssm and the dense hybrid in fp32, weights made on
+    the CPU and moved (``init_params`` draws differ by device): one step
+    through the kernels against the plain versions within 1e-4, then 3
+    ``Trainer`` steps whose losses equal the CPU port's within 1e-4."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.train_loop import Trainer
+
+    for name in ("tiny-ssm", "hybrid"):
+        cfg = ModelConfig(**HYBRID) if name == "hybrid" else get_config(name)
+        attn, ssm = _layers(cfg)
+        corpus = MarkovCorpus(vocab_size=cfg.vocab_size, seed=0,
+                              determinism=2.0)
+        host = init_params(cfg, args.seed, "cpu", torch.float32)
+        trs = {d: Trainer(cfg, AdamW(lr=cosine_schedule(3e-3, 2, 3)),
+                          device=d) for d in ("cpu", dev)}
+        tr = trs[dev]
+        p0 = _tree_to(host, dev)
+        batch = tr.make_batch(next(corpus.batches(4, 40, seed=1)))
+        want = {"ssd_chunked": ssm, "ssd_chunked_bwd": ssm}
+        if attn:
+            want.update(flash_attention=attn, flash_attention_bwd=attn)
+        check_step_routes(torch, kernels, f"{name} AR fp32 (B 4, T 39)",
+                          lambda: tr.loss(p0, batch)[0], p0, want, dev,
+                          tag="train ssm")
+        hist = {}
+        for d, t in trs.items():      # the Trainer updates params in place
+            _, _, h = t.fit(_tree_to(host, d, copy=True), corpus.batches(
+                4, 40, seed=1), 3, log_every=1, log_fn=None)
+            hist[d] = [x["loss"] for x in h]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(hist[dev], hist["cpu"]))
+        log(f"[train ssm] {name} fp32, 3 Trainer steps: losses card "
+            f"{[round(x, 6) for x in hist[dev]]} CPU "
+            f"{[round(x, 6) for x in hist['cpu']]}; max rel diff {rel:.3e} "
+            f"(tol 1e-4)")
+        if not rel <= 1e-4:
+            raise SmokeFailure(f"train ssm {name}: card losses differ from "
+                               f"the CPU port's ({rel})")
+
+
+def phase_ssm_train(torch, kernels, args, dev="cuda"):
+    """Phase 12: Mamba2 training on the card. (a) the SSD backward kernel
+    against its plain versions, (b) its times at the training shape, (c)
+    mamba2-130m AR training at full width and depth, (d) tiny-ssm and the
+    dense hybrid in fp32 against the plain versions and the CPU port, (e)
+    a PARD Trainer on tiny-ssm refused. Returns (max abs error, timing
+    row, launches of (c))."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import Trainer
+
+    err = phase_ssd_grad(torch, kernels, args, dev)
+    timing = phase_ssd_grad_timing(torch, args, dev)
+    launches = ssm_train_mamba(torch, kernels, args, dev)
+    ssm_train_tiny(torch, kernels, args, dev)
+    try:
+        Trainer(get_config("tiny-ssm"), AdamW(), loss_kind="pard", device=dev)
+    except ValueError as e:
+        log(f"[train ssm] PARD Trainer on tiny-ssm refused: {e}")
+    else:
+        raise SmokeFailure("a PARD Trainer on tiny-ssm was not refused")
+    return err, timing, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3146,6 +3524,13 @@ def main(argv=None) -> int:
         timing.update(timed(phase_train_timing, torch, F, args))
         launches.update(timed(phase_train, torch, kernels, args))
         trained = timed(phase_trained, torch, kernels, args)
+        err, ssd_grad_timing, ssm_launches = timed(phase_ssm_train, torch,
+                                                   kernels, args)
+        errs["ssd_chunked_bwd"] = err
+        timing.update(ssd_grad_timing)
+        launches["ssd_chunked_bwd"] = ssm_launches["ssd_chunked_bwd"]
+        for name in ("ssd_chunked", "ssd_chunked_bwd"):
+            timing[name]["train_launches"] = ssm_launches[name]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -16,6 +16,22 @@ import torch.nn.functional as F
 from ..kernels.pard_attention import PardMaskInfo
 from ..models.transformer import forward
 from .cod import IGNORE
+from .spec_decode import has_ssm
+
+
+def refuse_ssm_cod(cfg) -> None:
+    """COD packs a sequence's real tokens and the mask tokens of its
+    subtasks into one row, and only the attention mask keeps a mask token
+    at base n from the real tokens at n and after. A Mamba2 layer has no
+    mask: its recurrence carries every earlier token of the packed row,
+    the labels included, into each mask token. The JAX package trains such
+    a draft anyway; the port refuses it."""
+    if has_ssm(cfg):
+        raise ValueError(
+            f"PARD adaptation (COD) of {cfg.name!r}: a model with SSM layers "
+            f"cannot train on a packed COD row, because the recurrence "
+            f"carries the packed row's real tokens (the labels) into every "
+            f"mask token; train it with the AR objective")
 
 
 def _token_nll(logits, labels):
@@ -32,7 +48,9 @@ def pard_adaptation_loss(params, cfg, batch, *, k_max: int = 0,
     """batch: dict of [B, T] tensors from ``cod.pack_batch`` (input_ids,
     position_ids, labels, segment, base; int). Returns (loss, metrics):
     ``loss_subtask_s`` for s = 1..k_max with Eq. 8, ``token_mean_nll`` and
-    ``n_loss_tokens``, all tensors."""
+    ``n_loss_tokens``, all tensors. Raises ``ValueError`` for a config
+    with SSM layers (``refuse_ssm_cod``)."""
+    refuse_ssm_cod(cfg)
     seg = batch["segment"].to(torch.int32).contiguous()
     base = batch["base"].to(torch.int32).contiguous()
     mask_info = PardMaskInfo(seg, base)

@@ -22,8 +22,13 @@ the state unchanged and adds nothing to it, so padding t with dt = 0 (the
 wrapper) and masking the tail of a window with dt = 0 (the state gather of
 ``core.spec_decode``) are exact.
 
-The kernel has no backward yet: on CUDA tensors that require grad the
-wrapper raises.
+The gradient: the TPU kernel has none (JAX differentiates the jnp scan).
+On CUDA tensors with grad enabled and an input that requires grad,
+``ssd_chunked`` runs ``_SSDChunked``: the forward kernel, then in the
+backward ``ssd_chunked_bwd`` (``csrc/ssd_chunked_bwd.cu``), which
+recomputes the chunk states and walks the chunks in reverse.
+``ssd_chunked_bwd_ref`` is its plain version, the same reverse scan over
+chunks; on the CPU autograd differentiates ``ssd_chunked_ref``.
 """
 from __future__ import annotations
 
@@ -69,6 +74,12 @@ def ssd_ref(x, dt, A, B, C, init_state=None, collect_states: bool = False):
     return y, S
 
 
+def _acc(x) -> torch.dtype:
+    """The plain versions' arithmetic type: float32, or float64 for float64
+    inputs (a float64 run is the oracle of the float32 ones)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def ssd_chunk_body(x, dt, A, B, C, S_in):
     """Exact SSD over one chunk of l tokens from the incoming state S_in:
 
@@ -78,23 +89,24 @@ def ssd_chunk_body(x, dt, A, B, C, S_in):
 
     The causal mask sits inside the exp: the masked side (j > i) has a
     positive exponent that overflows. Returns (y [b,l,h,p] in x's dtype,
-    S_out f32)."""
-    dtA = dt.float() * A.float()                                # [b,l,h]
+    S_out f32; f64 for f64 inputs)."""
+    acc, y_dtype = _acc(x), x.dtype
+    x, dt, A, B, C, S_in = (a.to(acc) for a in (x, dt, A, B, C, S_in))
+    dtA = dt * A                                                # [b,l,h]
     cum = torch.cumsum(dtA, dim=1)
     diff = cum[:, :, None, :] - cum[:, None, :, :]              # [b,i,j,h]
     seq = x.shape[1]
     causal = torch.ones(seq, seq, dtype=torch.bool, device=x.device).tril()
     w = torch.exp(torch.where(causal[None, :, :, None], diff, -1e30))
-    cb = torch.einsum("bin,bjn->bij", C.float(), B.float())
+    cb = torch.einsum("bin,bjn->bij", C, B)
     gate = w * cb[..., None]                                    # [b,i,j,h]
-    xdt = x.float() * dt.float()[..., None]                     # [b,l,h,p]
+    xdt = x * dt[..., None]                                     # [b,l,h,p]
     y_intra = torch.einsum("bijh,bjhp->bihp", gate, xdt)
-    y_state = torch.einsum("bhpn,bin,bih->bihp", S_in.float(), C.float(),
-                           torch.exp(cum))
+    y_state = torch.einsum("bhpn,bin,bih->bihp", S_in, C, torch.exp(cum))
     decay_to_end = torch.exp(cum[:, -1:, :] - cum)              # [b,l,h]
-    S_out = S_in.float() * torch.exp(cum[:, -1])[:, :, None, None] + \
-        torch.einsum("bjh,bjhp,bjn->bhpn", decay_to_end, xdt, B.float())
-    return (y_intra + y_state).to(x.dtype), S_out
+    S_out = S_in * torch.exp(cum[:, -1])[:, :, None, None] + \
+        torch.einsum("bjh,bjhp,bjn->bhpn", decay_to_end, xdt, B)
+    return (y_intra + y_state).to(y_dtype), S_out
 
 
 def _pad_t(a, pad: int):
@@ -110,8 +122,8 @@ def ssd_chunked_ref(x, dt, A, B, C, init_state=None, *, chunk: int = 64):
     ``chunk`` tokens, t padded to a chunk multiple with dt = 0."""
     b, t, h, p = x.shape
     n = B.shape[-1]
-    S = (torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
-         if init_state is None else init_state.float())
+    S = (torch.zeros(b, h, p, n, dtype=_acc(x), device=x.device)
+         if init_state is None else init_state.to(_acc(x)))
     pad = -t % chunk
     x, dt, B, C = (_pad_t(a, pad) for a in (x, dt, B, C))
     ys = []
@@ -120,6 +132,106 @@ def ssd_chunked_ref(x, dt, A, B, C, init_state=None, *, chunk: int = 64):
         y, S = ssd_chunk_body(x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl], S)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :t], S
+
+
+def ssd_chunked_bwd_ref(x, dt, A, B, C, init_state, dy, dS_final, *,
+                        chunk: int):
+    """The gradient of ``ssd_chunked_ref`` by an explicit reverse scan over
+    chunks: the decomposition ``csrc/ssd_chunked_bwd.cu`` runs.
+
+    dy [b,t,h,p] is the cotangent of y, dS_final [b,h,p,n] (or None) that
+    of the final state. Per chunk, from its incoming state S (recomputed
+    forward) and the carried dS (the cotangent of the chunk's outgoing
+    state), with w_ij = exp(cum_i - cum_j) [j <= i], e = exp(cum),
+    f = exp(cum_L - cum), xdt = x dt:
+
+      D_ij   = dy_i . xdt_j                      (over P, per head)
+      dxdt_j = sum_i w_ij (C_i.B_j) dy_i + f_j dS B_j
+      dC_i   = sum_j,h w_ij D_ij B_j + sum_h e_i S^T dy_i
+      dB_j   = sum_i,h w_ij D_ij C_i + sum_h f_j dS^T xdt_j
+      M_ij   = w_ij (C_i.B_j) D_ij,  dd_j = f_j xdt_j . dS B_j
+      da_k   = sum_{i >= k, j < k} M_ij + sum_{j < k} dd_j
+               + sum_{i >= k} e_i dy_i . S C_i + exp(cum_L) sum S o dS
+      dS    <- exp(cum_L) dS + sum_i e_i dy_i C_i^T
+
+    da is the gradient of cum = cumsum(dt A) summed backward, da_k = sum_{i
+    >= k} dcum_i, with the terms that cancel in that sum left out: taken as
+    row sums less column sums of M, then cumulated, it would lose float32
+    digits to cancellation (da_0 of M's part is 0 exactly). ddt = dxdt . x
+    + da A, dA = sum over b and t of da dt. Returns (dx, ddt, dA, dB, dC,
+    dinit): dx, dB, dC in x's dtype, the rest float32 (float64 for float64
+    inputs; dinit the cotangent of the initial state, zeros taken for
+    None)."""
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    pad = -t % chunk
+    acc = _acc(x)
+    xf, dtf, Bf, Cf, dyf = (_pad_t(a.to(acc), pad) for a in (x, dt, B, C, dy))
+    A = A.to(acc)
+    S = (torch.zeros(b, h, p, n, dtype=acc, device=x.device)
+         if init_state is None else init_state.to(acc))
+    starts = list(range(0, t + pad, chunk))
+    states = []                         # each chunk's incoming state
+    for c0 in starts[:-1]:
+        sl = slice(c0, c0 + chunk)
+        states.append(S)
+        cum = torch.cumsum((dtf[:, sl] * A).double(), dim=1)
+        f = torch.exp((cum[:, -1:] - cum).to(acc)) * dtf[:, sl]
+        S = S * torch.exp(cum[:, -1].to(acc))[..., None, None] + torch.einsum(
+            "bjh,bjhp,bjn->bhpn", f, xf[:, sl], Bf[:, sl])
+    states.append(S)
+    dS = (torch.zeros(b, h, p, n, dtype=acc, device=x.device)
+          if dS_final is None else dS_final.to(acc))
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA = torch.zeros_like(A)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()[None, :, :, None]
+    before = causal.logical_not().transpose(1, 2)               # [k, j]: j < k
+    for c0, S_in in zip(reversed(starts), reversed(states)):
+        sl = slice(c0, c0 + chunk)
+        xc, dtc, Bc, Cc, dyc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl], \
+            dyf[:, sl]
+        # cum in float64, as the kernel takes it: w's exponent is a
+        # difference of two sums that grow along the chunk
+        cum = torch.cumsum((dtc * A).double(), dim=1)               # [b,l,h]
+        diff = (cum[:, :, None, :] - cum[:, None, :, :]).to(acc)    # [b,i,j,h]
+        w = torch.exp(torch.where(causal, diff, -1e30))
+        cb = torch.einsum("bin,bjn->bij", Cc, Bc)
+        xdt = xc * dtc[..., None]
+        D = torch.einsum("bihp,bjhp->bijh", dyc, xdt)
+        gate = w * cb[..., None]
+        dcb = w * D
+        M = gate * D
+        e = torch.exp(cum.to(acc))
+        f = torch.exp((cum[:, -1:] - cum).to(acc))
+        last = cum[:, -1].to(acc)                                   # [b,h]
+        sb = torch.einsum("bhpn,bjn->bjhp", dS, Bc)                 # dS B_j
+        sc = torch.einsum("bhpn,bin->bihp", S_in, Cc)               # S C_i
+        dxdt = torch.einsum("bijh,bihp->bjhp", gate, dyc) + f[..., None] * sb
+        dx[:, sl] = dxdt * dtc[..., None]
+        dC[:, sl] = torch.einsum("bijh,bjn->bin", dcb, Bc) + torch.einsum(
+            "bih,bhpn,bihp->bin", e, S_in, dyc)
+        dB[:, sl] = torch.einsum("bijh,bin->bjn", dcb, Cc) + torch.einsum(
+            "bjh,bhpn,bjhp->bjn", f, dS, xdt)
+        dd = f * (xdt * sb).sum(-1)                                 # [b,l,h]
+        ys = e * (dyc * sc).sum(-1)
+        # da_k = sum_{i >= k} dcum_i without its cancellations: the terms
+        # of w whose two ends are both at or past k cancel, and dd_i at i
+        # cancels its share of the sum at L - 1
+        da = (_rcumsum(M) * before).sum(2) + dd.cumsum(1) - dd + \
+            _rcumsum(ys) + (torch.exp(last) * (S_in * dS).sum((-2, -1)))[:, None]
+        ddt[:, sl] = (dxdt * xc).sum(-1) + da * A
+        dA += (da * dtc).sum((0, 1))
+        dS = torch.exp(last)[..., None, None] * dS + torch.einsum(
+            "bih,bihp,bin->bhpn", e, dyc, Cc)
+    return (dx[:, :t].to(x.dtype), ddt[:, :t], dA, dB[:, :t].to(B.dtype),
+            dC[:, :t].to(C.dtype), dS)
+
+
+def _rcumsum(a):
+    """The reverse cumulative sum over axis 1: out[:, k] = sum_{i >= k}."""
+    return a.flip(1).cumsum(1).flip(1)
 
 
 def clamp_chunk(chunk: int, t: int) -> int:
@@ -187,30 +299,11 @@ def _check(x, dt, A, B, C, init_state, chunk):
     if chunk > MAX_CHUNK:
         raise ValueError(f"chunk {chunk} > {MAX_CHUNK}: the kernel's tiles "
                          f"hold at most {MAX_CHUNK} tokens")
-    if any(a is not None and a.requires_grad
-           for a in (x, dt, A, B, C, init_state)):
-        raise NotImplementedError(
-            "ssd_chunked has no backward kernel yet: Mamba2 training on the "
-            "card comes with the slice that hand-writes the SSD backward")
 
 
-def ssd_chunked(x, dt, A, B, C, init_state: Optional[torch.Tensor] = None, *,
-                chunk: int = 64):
-    """Chunked SSD scan. Returns (y [b,t,h,p] in x's dtype, final state
-    [b,h,p,n] float32).
-
-    The chunk is clamped to ``min(chunk, max(8, next_pow2(t)))`` and t is
-    padded to a chunk multiple with dt = 0, as the TPU wrapper does; the
-    kernel pads in its loads, the plain version with zeros. CUDA tensors
-    launch ``csrc/ssd_chunked.cu``: x, B, C float32 or bfloat16 (one
-    dtype), dt, A and init_state float32, all contiguous, chunk <= 64;
-    for bf16 also the shapes ``ssd_tile_plan`` takes and 16-byte aligned
-    x, B, C and init_state.
-    """
+def _ssd_fwd(x, dt, A, B, C, init_state, chunk):
+    """Launch ``csrc/ssd_chunked.cu`` at the clamped ``chunk``."""
     b, t, h, p = x.shape
-    chunk = clamp_chunk(chunk, t)
-    if not on_card(x):
-        return ssd_chunked_ref(x, dt, A, B, C, init_state, chunk=chunk)
     _check(x, dt, A, B, C, init_state, chunk)
     n = B.shape[-1]
     nk = mt = 0                 # the f32 loop takes no tile plan
@@ -229,3 +322,105 @@ def ssd_chunked(x, dt, A, B, C, init_state: Optional[torch.Tensor] = None, *,
            *(ctypes.c_int(v) for v in (b, t, h, p, n, chunk,
                                        _DTYPE_CODE[x.dtype], nk, mt)))
     return y, state
+
+
+SSD_BWD_ROWS = 32       # rows of P per CTA of csrc/ssd_chunked_bwd.cu
+
+
+def _bwd_workspace(b: int, t: int, h: int, p: int, n: int, chunk: int) -> int:
+    """Floats of the backward kernel's f32 workspace: each chunk's incoming
+    state [b, h, nc, p, n], then per CTA (batch row, head, block of
+    ``SSD_BWD_ROWS`` rows of P) its partial dB and dC [t, n], ddt [t] and
+    dA."""
+    nc, npb = -(-t // chunk), -(-p // SSD_BWD_ROWS)
+    return b * h * (nc * p * n + npb * (2 * t * n + t + 1))
+
+
+def ssd_chunked_bwd(x, dt, A, B, C, init_state, dy, dS_final, *, chunk: int):
+    """The gradient of ``ssd_chunked`` at the clamped ``chunk``: (dx, ddt,
+    dA, dB, dC, dinit), dx, dB and dC in x's dtype, the rest float32.
+
+    CUDA tensors launch ``csrc/ssd_chunked_bwd.cu`` (one launch: the
+    backward walk, then a fixed-order reduction of its partial sums; no
+    float atomics, so two calls are bitwise equal); dy in x's dtype and
+    dS_final (float32 or None) contiguous, as the forward's inputs. CPU
+    tensors take ``ssd_chunked_bwd_ref``."""
+    if not on_card(x):
+        return ssd_chunked_bwd_ref(x, dt, A, B, C, init_state, dy, dS_final,
+                                   chunk=chunk)
+    _check(x, dt, A, B, C, init_state, chunk)
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    for name, a, dtype, shape in (("dy", dy, x.dtype, x.shape),
+                                  ("dS_final", dS_final, torch.float32,
+                                   (b, h, p, n))):
+        if a is None:
+            continue
+        if tuple(a.shape) != tuple(shape) or a.dtype != dtype:
+            raise ValueError(f"{name} is {a.dtype} {tuple(a.shape)}, "
+                             f"expected {dtype} {tuple(shape)}")
+        if a.device != x.device or not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    dx, ddt, dA = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dinit = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
+    size = _bwd_workspace(b, t, h, p, n, chunk)
+    ws = torch.empty(size, dtype=torch.float32, device=x.device)
+    launch("ssd_chunked_bwd", x, ptr(x), ptr(dt), ptr(A), ptr(B), ptr(C),
+           ptr(init_state), ptr(dy), ptr(dS_final), ptr(dx), ptr(ddt),
+           ptr(dA), ptr(dB), ptr(dC), ptr(dinit), ptr(ws),
+           ctypes.c_longlong(size),
+           *(ctypes.c_int(v) for v in (b, t, h, p, n, chunk,
+                                       _DTYPE_CODE[x.dtype])))
+    return dx, ddt, dA, dB, dC, dinit
+
+
+class _SSDChunked(torch.autograd.Function):
+    """``ssd_chunked`` on the card under autograd: the forward kernel, whose
+    inputs are all the backward keeps (it recomputes the chunk states), and
+    ``ssd_chunked_bwd``. Either cotangent may be None: y's is then zeros,
+    the final state's is skipped."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
+        ctx.chunk = chunk
+        return _ssd_fwd(x, dt, A, B, C, init_state, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, dt, A, B, C, init_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if d_state is not None:
+            d_state = d_state.contiguous()
+        dx, ddt, dA, dB, dC, dinit = ssd_chunked_bwd(
+            x, dt, A, B, C, init_state, dy, d_state, chunk=ctx.chunk)
+        return (dx, ddt, dA, dB, dC,
+                None if init_state is None else dinit, None)
+
+
+def ssd_chunked(x, dt, A, B, C, init_state: Optional[torch.Tensor] = None, *,
+                chunk: int = 64):
+    """Chunked SSD scan. Returns (y [b,t,h,p] in x's dtype, final state
+    [b,h,p,n] float32).
+
+    The chunk is clamped to ``min(chunk, max(8, next_pow2(t)))`` and t is
+    padded to a chunk multiple with dt = 0, as the TPU wrapper does; the
+    kernel pads in its loads, the plain version with zeros. CUDA tensors
+    launch ``csrc/ssd_chunked.cu``: x, B, C float32 or bfloat16 (one
+    dtype), dt, A and init_state float32, all contiguous, chunk <= 64;
+    for bf16 also the shapes ``ssd_tile_plan`` takes and 16-byte aligned
+    x, B, C and init_state. With grad enabled and an input that requires
+    grad they go through ``_SSDChunked``, whose backward launches
+    ``csrc/ssd_chunked_bwd.cu``; CPU tensors take ``ssd_chunked_ref``
+    under autograd.
+    """
+    chunk = clamp_chunk(chunk, x.shape[1])
+    if not on_card(x):
+        return ssd_chunked_ref(x, dt, A, B, C, init_state, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad
+            for a in (x, dt, A, B, C, init_state)):
+        return _SSDChunked.apply(x, dt, A, B, C, init_state, chunk)
+    return _ssd_fwd(x, dt, A, B, C, init_state, chunk)

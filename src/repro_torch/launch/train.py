@@ -5,7 +5,12 @@ synthetic Markov corpus, from random seeded weights or a checkpoint.
       --steps 100 --batch 4 --seq 512 [--pard] [--init ckpt.npz]
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
-the tiny-* configs there). The flags are the JAX launcher's
+the tiny-* configs there). Dense, Mamba2 (``--arch mamba2-130m``,
+``tiny-ssm``) and dense-hybrid configs train with the AR objective
+(Mamba2 layers through the SSD scan's forward and backward kernels);
+``--pard`` with a model that has SSM layers raises ``ValueError`` before
+any step (the recurrence would carry COD's labels into its mask
+tokens). The flags are the JAX launcher's
 (``repro.launch.train``), plus ``--device``; checkpoints (``--init``,
 ``--out``) are in its format, so either package reads the other's.
 Params are float32; the activations float32, as the JAX Trainer's
@@ -26,7 +31,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--pard", action="store_true",
-                    help="PARD adaptation objective instead of AR")
+                    help="PARD adaptation objective instead of AR (dense "
+                         "models only: SSM and hybrid models raise)")
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--r", type=float, default=0.7)
     ap.add_argument("--r-min", type=float, default=0.2)

@@ -5,7 +5,11 @@ Port of ``repro.models.ssm`` with n_groups = 1:
   SSD scan, the ``D`` skip, gated RMSNorm, out_proj.
 
 Every scan goes through ``kernels.ssd.ssd_chunked`` (the CUDA kernel on the
-card). The decode-time state of a layer is ``{"conv": [B, W-1, C], "ssm":
+card). A cache-free forward (``state=None``, training) differentiates
+through it: on the card its backward is ``csrc/ssd_chunked_bwd.cu``; the
+conv, softplus, gated norm and projections stay plain PyTorch under
+autograd, as the JAX package computes them outside any Pallas kernel. The
+decode-time state of a layer is ``{"conv": [B, W-1, C], "ssm":
 [B, H, P, N]}`` in float32 (``init_mamba2_state``); a window with a state
 updates it IN PLACE.
 
@@ -52,7 +56,8 @@ def causal_conv(ctx, w, b):
 def mamba2_apply(params, cfg, x, *, state=None, collect_states: bool = False):
     """x [B, T, d] -> (y [B, T, d], record).
 
-    ``state`` None: the scan starts from zeros (cache-free forwards). With
+    ``state`` None: the scan starts from zeros (cache-free forwards, the
+    training path: autograd runs the scan's backward kernel). With
     ``state`` and no ``collect_states``, the window's final conv and SSM
     states are written into ``state`` in place and the record is None.
     With ``collect_states`` the state is left as it was and the record

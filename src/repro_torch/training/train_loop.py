@@ -2,8 +2,10 @@
 
 Port of ``repro.training.train_loop``. ``Trainer`` runs one eager step per
 batch on ``device`` (the CUDA card unless the caller asks for another):
-the loss's forward through the attention kernels, autograd's backward
-through their backward kernels, then ``AdamW.update`` in place. A step
+the loss's forward through the attention and SSD kernels, autograd's
+backward through their backward kernels, then ``AdamW.update`` in place.
+Mamba2 and hybrid models train with the AR objective; PARD adaptation of
+a model with SSM layers raises (``core.adaptation.refuse_ssm_cod``). A step
 draws no random numbers: COD packing takes numpy's ``default_rng(step)``,
 as the JAX Trainer does. Sharded training (a ``mesh``, param or data
 shardings) is not ported yet and raises.
@@ -17,7 +19,7 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ..core.adaptation import ar_loss, pard_adaptation_loss
+from ..core.adaptation import ar_loss, pard_adaptation_loss, refuse_ssm_cod
 from ..core.cod import CodConfig, pack_batch
 from ..device import resolve_device
 from ..models.config import ModelConfig
@@ -48,6 +50,8 @@ class Trainer:
     def __post_init__(self):
         if self.loss_kind not in ("ar", "pard"):
             raise ValueError(f"loss_kind {self.loss_kind!r}: 'ar' or 'pard'")
+        if self.loss_kind == "pard":
+            refuse_ssm_cod(self.cfg)
         if (self.mesh, self.param_sharding, self.data_sharding) != (None,) * 3:
             raise NotImplementedError(
                 "sharded training comes with the multi-device slice of the port")

@@ -1030,8 +1030,6 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                 # non-contiguous x
         ssd.ssd_chunked(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
                         A, B, C, s0)
-    with pytest.raises(NotImplementedError):        # no backward kernel yet
-        ssd.ssd_chunked(x.requires_grad_(True), dt, A, B, C, s0)
     # the bf16 kernel: N past 128 or off 8, P off 8, a misaligned x
     for p, n in ((64, 136), (64, 20), (36, 16)):
         ins = _ssd_inputs(cuda, 1, 9, 2, p, n, torch.bfloat16)
@@ -1042,6 +1040,35 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
     off = off.view(xb.shape).copy_(xb)
     with pytest.raises(ValueError):
         ssd.ssd_chunked(off, dt, A, B, C, s0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ssd_backward_kernel_matches_plain(cuda, dtype, tol):
+    """Through torch.autograd: one ssd_chunked and one ssd_chunked_bwd
+    launch, every gradient against the plain backward run in float64 on
+    the same values (each entry within tol * max(1, |plain|)), at a ragged
+    tail and a ragged P block with an init state and a final-state
+    cotangent; two backward calls bitwise equal."""
+    ins = _ssd_inputs(cuda, 2, 50, 3, 40, 24, dtype)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    dy = torch.randn(ins[0].shape, generator=g).to(cuda, dtype)
+    ds = torch.randn(ins[5].shape, generator=g).to(cuda)
+    leaves = [a.detach().requires_grad_(True) for a in ins]
+    before = dict(kernels.launches)
+    y, s = ssd.ssd_chunked(*leaves, chunk=16)
+    got = torch.autograd.grad([y, s], leaves, [dy, ds])
+    torch.cuda.synchronize()
+    for name in ("ssd_chunked", "ssd_chunked_bwd"):
+        assert kernels.launches[name] == before.get(name, 0) + 1
+    want = ssd.ssd_chunked_bwd_ref(*(a.double() for a in ins), dy.double(),
+                                   ds.double(), chunk=16)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == (dtype if i in (0, 3, 4) else torch.float32)
+        _scaled_close(a, w, tol)
+    again = ssd.ssd_chunked_bwd(*ins, dy, ds, chunk=16)
+    first = ssd.ssd_chunked_bwd(*ins, dy, ds, chunk=16)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 HYBRID = dict(name="hybrid-test", arch_type="hybrid", num_layers=4,
