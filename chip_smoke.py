@@ -541,6 +541,13 @@ def phase_build(build):
         raise SmokeFailure(f"expected {SSD_MMA_INSTANCES} bf16 ssd_chunked "
                            f"instances in the ptxas report")
     check_tensor_cores(build, "ssd_chunked")
+    if report_mma("ssd_chunked_bwd", logs["ssd_chunked_bwd"]) != len(SSD_BWD_MMA):
+        raise SmokeFailure(f"expected {len(SSD_BWD_MMA)} bf16 ssd_chunked_bwd "
+                           f"kernels in the ptxas report")
+    smem = build.load("ssd_chunked_bwd").ssd_chunked_bwd_smem
+    log("  ssd_chunked_bwd: bf16 dynamic shared memory " + ", ".join(
+        f"{name} {smem(i)} B" for i, name in enumerate(SSD_BWD_MMA)))
+    check_tensor_cores(build, "ssd_chunked_bwd")
     smma = 0
     for name in MMA_SERVING:
         smma += report_mma(name, logs[name])
@@ -572,12 +579,14 @@ def report_mma(name, text):
 def ptxas_report(text):
     """{kernel: (registers, spill bytes)} from ``nvcc -Xptxas -v`` output,
     for the entries of the bf16 tensor-core kernels (namespaces tmma and
-    smma, and ssd's mma_kernel), named as ``_tmma_label`` names them."""
+    smma, ssd's mma_kernel and ssdb's stages A and C), named as
+    ``_tmma_label`` names them."""
     import re
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'(_ZN(?:4[ts]mma|3ssd10mma_kernel)\w+)'", line)
+                      r"'(_ZN(?:4[ts]mma|3ssd10mma_kernel|4ssdb\d+(?:chunk|grad)"
+                      r"_kernel)\w*)'", line)
         if m:
             cur = _tmma_label(m.group(1))
             out[cur] = [0, 0]
@@ -594,8 +603,12 @@ def ptxas_report(text):
 def _tmma_label(mangled):
     """fwd_kernel<64, CausalMask> from tmma's mangled kernel name;
     mma_kernel<64, tree, ContigKV, int8> from smma's (its mask flag, K/V
-    addressing and K/V dtype); ssd mma_kernel<nk, mt> from ssd's."""
+    addressing and K/V dtype); ssd mma_kernel<nk, mt> from ssd's;
+    ssd_chunked_bwd chunk_kernel / grad_kernel from ssdb's."""
     import re
+    bwd = re.match(r"_ZN4ssdb\d+(chunk_kernel|grad_kernel)", mangled)
+    if bwd:
+        return f"ssd_chunked_bwd {bwd.group(1)}"
     ssd_ = re.match(r"_ZN3ssd10mma_kernelILi(\d+)ELi(\d+)E", mangled)
     if ssd_:
         return f"ssd mma_kernel<nk={ssd_.group(1)}, mt={ssd_.group(2)}>"
@@ -618,7 +631,8 @@ def check_tensor_cores(build, name):
     """Fail unless the SASS of every bf16 product kernel of ``name``'s
     library (tmma's fwd / dkdv / dq instances, its delta pass has no
     product; smma's serving loop, one per head dim; ssd's mma_kernel, one
-    per tile plan) holds HMMA or HGMMA."""
+    per tile plan; ssdb's stages A and C, its recurrence and reduction
+    have no product) holds HMMA or HGMMA."""
     tool = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, check=True,
@@ -629,10 +643,13 @@ def check_tensor_cores(build, name):
         if (fn.startswith("_ZN4tmma") and any(
                 k in fn for k in ("fwd_kernel", "dkdv_kernel", "dq_kernel"))
                 or fn.startswith("_ZN4smma") and "mma_kernel" in fn
-                or fn.startswith("_ZN3ssd10mma_kernel")):
+                or fn.startswith("_ZN3ssd10mma_kernel")
+                or fn.startswith("_ZN4ssdb") and any(
+                    k in fn for k in SSD_BWD_MMA)):
             seen[_tmma_label(fn)] = ("HGMMA" if "HGMMA" in chunk else
                                      "HMMA" if "HMMA" in chunk else None)
     want = (SSD_MMA_INSTANCES if name == "ssd_chunked" else
+            len(SSD_BWD_MMA) if name == "ssd_chunked_bwd" else
             SMMA_PER_KERNEL if name in MMA_SERVING else
             8 if name.endswith("_bwd") else 4)      # (dkdv, dq) x 4 head dims
     missing = [k for k, v in seen.items() if v is None]
@@ -1555,6 +1572,8 @@ SSD_SHAPES = {"mamba2-130m": dict(h=24, p=64, n=128),
 # N off the warps' 16-column k-steps
 SSD_EDGE = dict(h=3, p=40, n=24)
 SSD_MMA_INSTANCES = 6               # nk 1, 2 x mt 1, 2, 4 (ssd_tile_plan)
+# the bf16 backward's tensor-core stages (csrc/ssd_chunked_bwd.cu): A, C
+SSD_BWD_MMA = ("chunk_kernel", "grad_kernel")
 
 
 def ssd_case(torch, gen, *, b, t, h, p, n, dtype, chunk, init=True,
@@ -2672,33 +2691,46 @@ def _plain_ssd(x, dt, A, B, C, init_state=None, *, chunk=64):
                                chunk=ssd.clamp_chunk(chunk, x.shape[1]))
 
 
-def _route_grads(torch, kernels, loss_fn, params):
-    """Loss, global gradient norm and launches of ``loss_fn()`` through the
-    kernels and through the plain versions (the model's attention and
-    Mamba2 modules pointed at them for the second run), and |g_kernels -
-    g_plain|, taken one leaf at a time: only the kernel route's gradients
-    are kept, not copied, while the plain route's come in."""
+@contextlib.contextmanager
+def _plain_routes():
+    """The model's attention and Mamba2 modules pointed at the plain
+    versions inside the block."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pard_attention as pa
     from repro_torch.kernels import ssd
     from repro_torch.models import attention as model_attention
     from repro_torch.models import ssm as model_ssm
+    model_attention.flash_attention = fa.flash_attention_ref
+    model_attention.pard_attention = (
+        lambda q, k, v, info, **kw: pa.pard_attention_ref(
+            q, k, v, info.segment, info.base, **kw))
+    model_ssm.ssd_chunked = _plain_ssd
+    try:
+        yield
+    finally:
+        model_attention.flash_attention = fa.flash_attention
+        model_attention.pard_attention = pa.pard_attention
+        model_ssm.ssd_chunked = ssd.ssd_chunked
+
+
+def _route_grads(torch, kernels, loss_fn, params):
+    """Loss, global gradient norm and launches of ``loss_fn()`` through the
+    kernels and through the plain versions (``_plain_routes``), and
+    |g_kernels - g_plain|, taken one leaf at a time: only the kernel
+    route's gradients are kept, not copied, while the plain route's come
+    in."""
     from repro_torch.training.optimizer import leaves
     got, kept, diff2 = {}, [], 0.0
     try:
         for route in ("kernels", "plain"):
-            if route == "plain":
-                model_attention.flash_attention = fa.flash_attention_ref
-                model_attention.pard_attention = (
-                    lambda q, k, v, info, **kw: pa.pard_attention_ref(
-                        q, k, v, info.segment, info.base, **kw))
-                model_ssm.ssd_chunked = _plain_ssd
-            for p in leaves(params):
-                p.requires_grad_(True)
-                p.grad = None
-            kernels.launches.clear()
-            loss = loss_fn()
-            loss.backward()
+            with (_plain_routes() if route == "plain"
+                  else contextlib.nullcontext()):
+                for p in leaves(params):
+                    p.requires_grad_(True)
+                    p.grad = None
+                kernels.launches.clear()
+                loss = loss_fn()
+                loss.backward()
             norm2 = 0.0
             for i, p in enumerate(leaves(params)):
                 g = p.grad.float()
@@ -2712,13 +2744,75 @@ def _route_grads(torch, kernels, loss_fn, params):
             got[route] = (loss.item(), math.sqrt(norm2),
                           dict(kernels.launches))
     finally:
-        model_attention.flash_attention = fa.flash_attention
-        model_attention.pard_attention = pa.pard_attention
-        model_ssm.ssd_chunked = ssd.ssd_chunked
         for p in leaves(params):
             p.requires_grad_(False)
             p.grad = None
     return got, math.sqrt(diff2)
+
+
+# the Mamba2 leaves nearest the scan (models/ssm.py mamba2_apply): their
+# gradients pass through ssd_chunked_bwd and little else
+SCAN_LEAVES = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log")
+
+
+def _leaf_names(tree, key=""):
+    """The last key of each leaf of a params tree, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_names(tree[k], k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaf_names(v, key)]
+    return [key]
+
+
+def scan_oracle(torch, tr, params, batch):
+    """Which bf16 route is nearer the exact gradient of one training step:
+    the step's gradients through the kernels (bf16 activations), through
+    the plain versions (bf16) and, as the oracle, through the plain
+    versions with f32 activations; |g - g_oracle| / |g_oracle| of both bf16
+    routes over every leaf and over ``SCAN_LEAVES``, printed. Returns
+    {route: (all leaves, scan leaves)}."""
+    from repro_torch.training.optimizer import leaves
+    names = _leaf_names(params)
+    scan = [n in SCAN_LEAVES for n in names]
+    dtype, remat = tr.dtype, tr.remat
+    grads = {}
+    try:
+        tr.remat = True
+        for route, plain, act in (("kernels bf16", False, dtype),
+                                  ("plain bf16", True, dtype),
+                                  ("oracle", True, torch.float32)):
+            tr.dtype = act
+            with _plain_routes() if plain else contextlib.nullcontext():
+                for p in leaves(params):
+                    p.requires_grad_(True)
+                    p.grad = None
+                tr.loss(params, batch)[0].backward()
+            grads[route] = [p.grad.float() for p in leaves(params)]
+    finally:
+        tr.dtype, tr.remat = dtype, remat
+        for p in leaves(params):
+            p.requires_grad_(False)
+            p.grad = None
+
+    def dist(route, sel):
+        num = sum(float((g - o).square().sum()) for g, o, s in zip(
+            grads[route], grads["oracle"], sel) if s)
+        den = sum(float(o.square().sum())
+                  for o, s in zip(grads["oracle"], sel) if s)
+        return math.sqrt(num / den)
+
+    out = {r: (dist(r, [True] * len(scan)), dist(r, scan))
+           for r in ("kernels bf16", "plain bf16")}
+    (ka, ks), (pa_, ps) = out["kernels bf16"], out["plain bf16"]
+    log(f"[train ssm] nearer the exact gradient? one B=1 step, |g - g_f32| "
+        f"/ |g_f32| against the plain versions with f32 activations: all "
+        f"leaves kernels bf16 {ka:.3e}, plain bf16 {pa_:.3e} (ratio "
+        f"{ka / pa_:.3f}); {'/'.join(SCAN_LEAVES)} ({sum(scan)} leaves) "
+        f"kernels bf16 {ks:.3e}, plain bf16 {ps:.3e} (ratio {ks / ps:.3f}); "
+        f"the kernel route is {'nearer' if ka <= pa_ else 'farther'}"
+        + ("" if ka <= 1.5 * pa_ else " by more than 1.5x"))
+    del grads
+    return out
 
 
 def compare_plain_step(torch, kernels, tr, params, batch):
@@ -2744,7 +2838,7 @@ def step_parts_ms(torch, tr, params, state, batch):
 
 
 def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
-                    dev="cuda"):
+                    dev="cuda", extra=None):
     """One full-width training cell with the trainer that
     ``repro_torch.launch.train`` makes from ``flags``, from --seed weights:
     a B=1 step through the kernels and through the plain versions (loss and
@@ -2752,7 +2846,8 @@ def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
     --train-steps steps at B 4, N ``n`` through ``Trainer.fit`` with one
     launch of each kernel in ``names`` per layer per step and a finite,
     falling loss, and one more step cut into forward + loss, backward and
-    AdamW. Returns the launches of the fit."""
+    AdamW; ``extra(tr, params, batch)``, if given, runs on the B=1 step's
+    weights and batch before the fit. Returns the launches of the fit."""
     import numpy as np
     from repro_torch.launch import train as launch_train
     from repro_torch.models import init_params
@@ -2775,6 +2870,8 @@ def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
     if np_ or not all(nk.get(name) for name in names):
         raise SmokeFailure(f"{tag}: the routes did not take the intended "
                            f"kernels ({nk} / {np_})")
+    if extra is not None:
+        extra(tr, params, one)
 
     stream = corpus.batches(4, n, seed=args.seed)
     _sync(dev)
@@ -3282,6 +3379,12 @@ def phase_ssd_grad(torch, kernels, args, dev="cuda"):
                                    f"bwd {n_bwd}, expected 1 and 1")
             if dtype == torch.float32 and dims is SSD_TRAIN:
                 _f32_plain_distance(torch, ssd, c, dy, ds, chunk, got, ref)
+            if dtype == torch.bfloat16 and dims is SSD_TRAIN:
+                log("[ssd grad] bf16 kernel at the training shape, max |err| "
+                    "/ max(1, |exact|) against the float64 gradient: "
+                    + ", ".join(f"{name} {_grad_err(torch, g, w, 1.0, 0)[0]:.2e}"
+                                for name, g, w in zip(SSD_GRADS, got, ref)
+                                if g is not None))
         c, dy, ds = _ssd_grad_inputs(torch, gen, dev, dtype=dtype, full=True,
                                      **SSD_TRAIN)
         first, second = (ssd.ssd_chunked_bwd(*_ssd_args(c), dy, ds,
@@ -3331,8 +3434,9 @@ def phase_ssd_grad_timing(torch, args, dev="cuda"):
     """Phase 12 (b): forward and backward at mamba2-130m's training shape
     (b 4, t 1024, h 24, P 64, N 128, chunk 64), bf16 and fp32, by device
     time from a CUDA graph over rotating input sets (eager beside), beside
-    the bound and the plain versions' eager times. No single PyTorch call
-    computes this scan or its gradient: library none."""
+    the bound and the plain versions' eager times, and the backward's f32
+    workspace a call. No single PyTorch call computes this scan or its
+    gradient: library none."""
     from repro_torch.kernels import ssd
     gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
     out = {}
@@ -3366,11 +3470,16 @@ def phase_ssd_grad_timing(torch, args, dev="cuda"):
                        else ssd_bwd_bound_ms(sets[0][0], False))
             rows[kind] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
                               bound_ms=bnd, bound_by=by)
+            ws = ""
+            if kind == "bwd":
+                rows[kind]["workspace_bytes"] = 4 * ssd._bwd_workspace(
+                    **SSD_TRAIN, dtype=dtype)
+                ws = f"; workspace {rows[kind]['workspace_bytes']} bytes"
             log(f"[timing] ssd_chunked {kind} training shape b=4 t=1024 H=24 "
                 f"P=64 N=128 chunk=64 {dtype}: kernel {ms:.4f} ms (eager "
                 f"{eager:.4f}), plain {plain_ms:.4f} ms, library none, bound "
                 f"{bnd:.5f} ms ({by}); device time from a CUDA graph of "
-                f"{len(sets)} input sets")
+                f"{len(sets)} input sets{ws}")
         out[str(dtype).split(".")[1]] = rows
         del sets
         torch.cuda.empty_cache()
@@ -3378,6 +3487,7 @@ def phase_ssd_grad_timing(torch, args, dev="cuda"):
     return {"ssd_chunked_bwd": dict(
         ms=bf["ms"], plain_ms=bf["plain_ms"], library_ms=None,
         bound_ms=bf["bound_ms"], bound_by=bf["bound_by"],
+        workspace_bytes=bf["workspace_bytes"],
         timings=[dict(row, label=f"{kind} {dt} training shape")
                  for dt, rows in out.items() for kind, row in rows.items()])}
 
@@ -3387,7 +3497,8 @@ def ssm_train_mamba(torch, kernels, args, dev="cuda"):
     weights from --seed, f32 params and AdamW moments, bf16 activations,
     the launcher's trainer at peak lr ``TRAIN_LR``) as a
     ``full_width_cell``: 24 ssd_chunked and 24 ssd_chunked_bwd launches a
-    step. Returns the launches of the fit."""
+    step; before the fit ``scan_oracle`` on the B=1 step. Returns the
+    launches of the fit."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import MarkovCorpus
 
@@ -3399,7 +3510,8 @@ def ssm_train_mamba(torch, kernels, args, dev="cuda"):
     return full_width_cell(
         torch, kernels, args, cfg,
         MarkovCorpus(vocab_size=cfg.vocab_size, seed=0, determinism=2.0),
-        flags, n, ("ssd_chunked", "ssd_chunked_bwd"), "train ssm", dev)
+        flags, n, ("ssd_chunked", "ssd_chunked_bwd"), "train ssm", dev,
+        extra=lambda tr, params, batch: scan_oracle(torch, tr, params, batch))
 
 
 def ssm_train_tiny(torch, kernels, args, dev="cuda"):

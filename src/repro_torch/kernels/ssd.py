@@ -26,7 +26,9 @@ The gradient: the TPU kernel has none (JAX differentiates the jnp scan).
 On CUDA tensors with grad enabled and an input that requires grad,
 ``ssd_chunked`` runs ``_SSDChunked``: the forward kernel, then in the
 backward ``ssd_chunked_bwd`` (``csrc/ssd_chunked_bwd.cu``), which
-recomputes the chunk states and walks the chunks in reverse.
+recomputes the chunk states: for bf16 chunk-parallel on the tensor cores
+with an elementwise recurrence over chunks (tiled by ``ssd_bwd_plan``),
+for float32 by a walk over the chunks forward and then in reverse.
 ``ssd_chunked_bwd_ref`` is its plain version, the same reverse scan over
 chunks; on the CPU autograd differentiates ``ssd_chunked_ref``.
 """
@@ -324,14 +326,48 @@ def _ssd_fwd(x, dt, A, B, C, init_state, chunk):
     return y, state
 
 
-SSD_BWD_ROWS = 32       # rows of P per CTA of csrc/ssd_chunked_bwd.cu
+SSD_BWD_ROWS = 32       # rows of P per CTA of the fp32 backward
+SSD_BWD_P_BLOCK = 64    # rows of P per CTA of the bf16 backward
 
 
-def _bwd_workspace(b: int, t: int, h: int, p: int, n: int, chunk: int) -> int:
-    """Floats of the backward kernel's f32 workspace: each chunk's incoming
-    state [b, h, nc, p, n], then per CTA (batch row, head, block of
-    ``SSD_BWD_ROWS`` rows of P) its partial dB and dC [t, n], ddt [t] and
-    dA."""
+def ssd_bwd_plan(b: int, t: int, h: int, p: int, n: int,
+                 chunk: int) -> Tuple[Tuple[int, int, int], int, int, int]:
+    """(grid, nk, mt, workspace floats) of the bf16 backward
+    (``csrc/ssd_chunked_bwd.cu``) at the clamped ``chunk``.
+
+    Stages A and C run one CTA of 4 warps per (block of 64 rows of P,
+    head, batch row x chunk): grid = (ceil(p / 64), h, b * nc) with nc =
+    ceil(t / chunk). A chunk runs in mt = 1, 2 or 4 tiles of 16 token
+    rows, N in nk = 1 or 2 halves of 64 columns (rows and columns past
+    the shape are zero). The f32 workspace holds each chunk's state
+    contribution and then its incoming state, the same for the state's
+    cotangent [b, h, nc, p, n] each; the partial dB and dC of each (batch
+    row, head, P block) [t, n] each; each chunk's decay exp(cum_L) [b, h,
+    nc]; the partial ddt of each P block [b, h, npb, t]; and the partial
+    dA of each CTA [b, nc, h, npb]. The shapes ``ssd_tile_plan`` takes:
+    P and N multiples of 8, N <= 128, chunk <= 64. A function of
+    integers, so the plan never reads a device value.
+    """
+    args = (b, t, h, p, n, chunk)
+    if not all(isinstance(v, int) and not isinstance(v, bool) for v in args):
+        raise TypeError(f"ssd_bwd_plan takes Python ints, got "
+                        f"{[type(v).__name__ for v in args]}")
+    if min(args) < 1:
+        raise ValueError(f"ssd_bwd_plan needs positive sizes, got {args}")
+    _, nk, mt = ssd_tile_plan(p, n, chunk)
+    nc, npb = -(-t // chunk), -(-p // SSD_BWD_P_BLOCK)
+    ws = b * h * (2 * nc * p * n + npb * (2 * t * n + t) + nc + nc * npb)
+    return (npb, h, b * nc), nk, mt, ws
+
+
+def _bwd_workspace(b: int, t: int, h: int, p: int, n: int, chunk: int,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """Floats of the backward kernel's f32 workspace. bf16: the layout of
+    ``ssd_bwd_plan``. fp32: each chunk's incoming state [b, h, nc, p, n],
+    then per CTA (batch row, head, block of ``SSD_BWD_ROWS`` rows of P)
+    its partial dB and dC [t, n], ddt [t] and dA."""
+    if dtype == torch.bfloat16:
+        return ssd_bwd_plan(b, t, h, p, n, chunk)[3]
     nc, npb = -(-t // chunk), -(-p // SSD_BWD_ROWS)
     return b * h * (nc * p * n + npb * (2 * t * n + t + 1))
 
@@ -340,11 +376,13 @@ def ssd_chunked_bwd(x, dt, A, B, C, init_state, dy, dS_final, *, chunk: int):
     """The gradient of ``ssd_chunked`` at the clamped ``chunk``: (dx, ddt,
     dA, dB, dC, dinit), dx, dB and dC in x's dtype, the rest float32.
 
-    CUDA tensors launch ``csrc/ssd_chunked_bwd.cu`` (one launch: the
-    backward walk, then a fixed-order reduction of its partial sums; no
-    float atomics, so two calls are bitwise equal); dy in x's dtype and
-    dS_final (float32 or None) contiguous, as the forward's inputs. CPU
-    tensors take ``ssd_chunked_bwd_ref``."""
+    CUDA tensors launch ``csrc/ssd_chunked_bwd.cu`` (one call, counted
+    once: bf16 runs its four stages on the tensor cores as ``ssd_bwd_plan``
+    lays them out, fp32 its backward walk and a reduction; no float
+    atomics, so two calls are bitwise equal); dy in x's dtype and dS_final
+    (float32 or None) contiguous, as the forward's inputs, and for bf16
+    x, dy, B, C, init_state and dS_final 16-byte aligned. CPU tensors take
+    ``ssd_chunked_bwd_ref``."""
     if not on_card(x):
         return ssd_chunked_bwd_ref(x, dt, A, B, C, init_state, dy, dS_final,
                                    chunk=chunk)
@@ -361,17 +399,25 @@ def ssd_chunked_bwd(x, dt, A, B, C, init_state, dy, dS_final, *, chunk: int):
                              f"expected {dtype} {tuple(shape)}")
         if a.device != x.device or not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
+    nk = mt = 0                 # the f32 loop takes no plan
+    if x.dtype == torch.bfloat16:
+        _, nk, mt, _ = ssd_bwd_plan(b, t, h, p, n, chunk)
+        for name, a in (("x", x), ("dy", dy), ("B", B), ("C", C),
+                        ("init_state", init_state), ("dS_final", dS_final)):
+            if a is not None and a.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned for the "
+                                 f"bf16 backward's copies")
     dx, ddt, dA = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     dinit = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
-    size = _bwd_workspace(b, t, h, p, n, chunk)
+    size = _bwd_workspace(b, t, h, p, n, chunk, x.dtype)
     ws = torch.empty(size, dtype=torch.float32, device=x.device)
     launch("ssd_chunked_bwd", x, ptr(x), ptr(dt), ptr(A), ptr(B), ptr(C),
            ptr(init_state), ptr(dy), ptr(dS_final), ptr(dx), ptr(ddt),
            ptr(dA), ptr(dB), ptr(dC), ptr(dinit), ptr(ws),
            ctypes.c_longlong(size),
            *(ctypes.c_int(v) for v in (b, t, h, p, n, chunk,
-                                       _DTYPE_CODE[x.dtype])))
+                                       _DTYPE_CODE[x.dtype], nk, mt)))
     return dx, ddt, dA, dB, dC, dinit
 
 

@@ -1071,6 +1071,50 @@ def test_ssd_backward_kernel_matches_plain(cuda, dtype, tol):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize("t,chunk,full", [(256, 64, False), (200, 64, True),
+                                           (40, 16, True)])
+def test_ssd_bf16_backward_reduced_training_shape(cuda, t, chunk, full):
+    """The bf16 backward's four stages at mamba2-130m's widths (h 4, P 64,
+    N 128) against the plain backward in float64 (each entry within 2e-2
+    * max(1, |plain|)): one launch counted per call, two calls bitwise
+    equal, and a call captured in a CUDA graph replayed on fresh inputs
+    equal to an eager call on them."""
+    ins = list(_ssd_inputs(cuda, 2, t, 4, 64, 128, torch.bfloat16, full))
+    g = torch.Generator(device="cpu").manual_seed(3)
+    dy = torch.randn(2, t, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    ds = torch.randn(2, 4, 64, 128, generator=g).to(cuda) if full else None
+    before = kernels.launches["ssd_chunked_bwd"]
+    got = ssd.ssd_chunked_bwd(*ins, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kernels.launches["ssd_chunked_bwd"] == before + 1
+    want = ssd.ssd_chunked_bwd_ref(
+        *(None if a is None else a.double() for a in ins), dy.double(),
+        None if ds is None else ds.double(), chunk=chunk)
+    for a, w in zip(got, want):
+        _scaled_close(a, w, 2e-2)
+    again = ssd.ssd_chunked_bwd(*ins, dy, ds, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    args = ins + [dy, ds]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd.ssd_chunked_bwd(*args, chunk=chunk)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd.ssd_chunked_bwd(*args, chunk=chunk)
+    new = list(_ssd_inputs(cuda, 2, t, 4, 64, 128, torch.bfloat16, full,
+                           seed=1)) + [dy.flip(1).contiguous(),
+                                       None if ds is None else -ds]
+    for buf, val in zip(args, new):
+        if buf is not None:
+            buf.copy_(val)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = ssd.ssd_chunked_bwd(*new, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
 HYBRID = dict(name="hybrid-test", arch_type="hybrid", num_layers=4,
               attn_every=2, d_model=64, n_heads=2, n_kv_heads=1, head_dim=32,
               d_ff=128, vocab_size=512, ssm_state=16, ssm_headdim=32,

@@ -7,7 +7,7 @@ an explicit reverse scan over chunks) against autograd of the port's
 (b 2, h 2, P 32, N 16, chunk 8), t in {1, 9, 40}, with and without an init
 state and a final-state cotangent. Tolerance: max |dgrad| / max(1,
 max |grad|) <= 1e-5 per gradient (float32 sums taken in another order). Then the
-kernel's decomposition: its CTAs take 32-row blocks of P and sum their
+fp32 kernel's decomposition: its CTAs take 32-row blocks of P and sum their
 partial dB, dC, ddt and dA afterwards, emulated here as the plain version
 on each block of P, summed; the autograd Function's plumbing (None
 cotangents, the init state's gradient) with its launches pointed at the
@@ -131,7 +131,7 @@ def test_plain_backward_without_init_state_gives_its_cotangent():
 
 @pytest.mark.parametrize("t,p,dsf", [(40, 40, True), (23, 64, False)])
 def test_kernel_decomposition_over_p_blocks(t, p, dsf):
-    """The kernel's CTAs own ``SSD_BWD_ROWS`` rows of P each: dx and dinit
+    """The fp32 kernel's CTAs own ``SSD_BWD_ROWS`` rows of P each: dx and dinit
     complete per block, dB, dC, ddt and dA partial sums (each block's own
     reverse cumsum of its dcum, decay terms included) added afterwards.
     Emulated as the plain backward on each block of P, summed."""
