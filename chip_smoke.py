@@ -186,7 +186,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      more step cut into forward + loss, backward and AdamW; tiny-ssm and
      the dense hybrid in fp32 (one step kernels vs plain within 1e-4, 3
      Trainer steps equal to the CPU port's within 1e-4); a PARD Trainer on
-     tiny-ssm refused with ValueError.
+     tiny-ssm refused with ValueError;
+ 13. trees with Mamba2 / hybrid drafts: tiny-target (fp32) with a
+     tiny-ssm and a dense-hybrid draft under the static tree (2,2,1,1)
+     and the adaptive bank, paged and contiguous, greedy and at T = 0.8,
+     4 requests of 16 new tokens: the card's tokens equal the CPU port's,
+     greedy tokens equal AR's, ssd_chunked launches exactly 2 per draft
+     Mamba2 layer a step (the collecting scan and the gather);
+ 14. the dense families deepseek-67b, command-r-35b and gemma2-27b at
+     their published widths and 4 layers (gemma2: 2 local, 2 global),
+     random weights made on the card, each with a 1-layer draft of its
+     own family: (a) in fp32 and bf16, a cached forward over 2048 tokens
+     (gemma2: 4352, past its 4096 window) in prefill windows of 32 rows
+     (paged) or 255 rows (contiguous), then eight one-row and one 8-row
+     decode windows, against one cache-free forward through
+     flash_attention; (b) the same windows through the plain versions;
+     both within ``DENSE_TOL`` of the largest logit, with exact launches;
+     (c) an Engine in mode pard, K = 8, paged KV, 4 requests of 32 new
+     tokens: bf16 tok/s and mean accepted beside the card, fp32 PARD
+     tokens equal to AR's.
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers (a serving-attention kernel's row also lists every timing row of
@@ -194,7 +212,9 @@ phase 4 under ``timings``, and its int8 and fp8 routes' error, launches
 and times under ``int8`` / ``fp8``; every row lists its launches in each
 run of phase 10 under ``generate_launches`` and of phase 11 under
 ``trained_launches``; the two SSD rows their launches in phase 12's
-mamba2-130m run under ``train_launches``) and the result line ``{"ok":
+mamba2-130m run under ``train_launches``; every row its launches in
+phase 13 under ``tree_ssm_launches`` and per family of phase 14 under
+``dense_launches``) and the result line ``{"ok":
 true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1169,8 +1189,9 @@ def expected_launches(mode, tc, dc, cfg, steps, prefill_steps):
     attention layer per forward (VSD: K draft forwards a step); for Mamba2
     layers one ssd_chunked per layer per forward and one more per layer
     where the forward's states are gathered (every PARD forward, VSD's
-    first draft forward and its verify, and the AR forwards of the
-    ``prefill_steps``, whose window is widened with pads)."""
+    first draft forward and its verify, the draft forward of a tree step,
+    and the AR forwards of the ``prefill_steps``, whose window is widened
+    with pads)."""
     flat = "decode_attention_paged" if cfg.paged else "decode_attention"
     tree = "tree_attention_paged" if cfg.paged else "tree_attention"
     (ta, ts), (da, ds) = _layers(tc), _layers(dc) if dc else (0, 0)
@@ -1182,8 +1203,9 @@ def expected_launches(mode, tc, dc, cfg, steps, prefill_steps):
     elif cfg.tree is None:
         want = {flat: (ta + da) * steps,
                 "ssd_chunked": 2 * (ts + ds) * steps}
-    else:
-        want = {flat: da * steps, tree: ta * steps}
+    else:           # a tree's target has no Mamba2 layer (refused)
+        want = {flat: da * steps, tree: ta * steps,
+                "ssd_chunked": 2 * ds * steps}
     return {k: v for k, v in want.items() if v}
 
 
@@ -2693,23 +2715,32 @@ def _plain_ssd(x, dt, A, B, C, init_state=None, *, chunk=64):
 
 @contextlib.contextmanager
 def _plain_routes():
-    """The model's attention and Mamba2 modules pointed at the plain
-    versions inside the block."""
+    """The model's attention (cache-free and cached) and Mamba2 modules
+    pointed at the plain versions inside the block."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pard_attention as pa
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import tree_attention as ta
     from repro_torch.models import attention as model_attention
     from repro_torch.models import ssm as model_ssm
-    model_attention.flash_attention = fa.flash_attention_ref
-    model_attention.pard_attention = (
-        lambda q, k, v, info, **kw: pa.pard_attention_ref(
-            q, k, v, info.segment, info.base, **kw))
+    plain = {"flash_attention": fa.flash_attention_ref,
+             "pard_attention": (
+                 lambda q, k, v, info, **kw: pa.pard_attention_ref(
+                     q, k, v, info.segment, info.base, **kw)),
+             "decode_attention": da.decode_attention_ref,
+             "decode_attention_paged": da.decode_attention_paged_ref,
+             "tree_attention": ta.tree_attention_ref,
+             "tree_attention_paged": ta.tree_attention_paged_ref}
+    kept = {n: getattr(model_attention, n) for n in plain}
+    for n, fn in plain.items():
+        setattr(model_attention, n, fn)
     model_ssm.ssd_chunked = _plain_ssd
     try:
         yield
     finally:
-        model_attention.flash_attention = fa.flash_attention
-        model_attention.pard_attention = pa.pard_attention
+        for n, fn in kept.items():
+            setattr(model_attention, n, fn)
         model_ssm.ssd_chunked = ssd.ssd_chunked
 
 
@@ -3583,6 +3614,280 @@ def phase_ssm_train(torch, kernels, args, dev="cuda"):
     return err, timing, launches
 
 
+# ---------------------------------------------------------------------------
+# trees with Mamba2 / hybrid drafts, and the dense families at full width
+# ---------------------------------------------------------------------------
+
+TREE_SSM_NEW = 16                    # phase 13: new tokens of each request
+TREE_SSM_T = 0.8                     # phase 13's sampled runs
+DENSE_FAMILIES = ("deepseek-67b", "command-r-35b", "gemma2-27b")
+DENSE_LAYERS = 4                     # of 95 / 40 / 46: one card, the limit
+DENSE_LONG = {"deepseek-67b": 2048, "command-r-35b": 2048,
+              "gemma2-27b": 4352}    # (a)'s sequence: gemma2's passes 4096
+DENSE_TAIL = [1] * 8 + [8]           # decode windows after the prefill
+DENSE_NEW = 32                       # (c): new tokens of each request
+PAGED_ROWS, CONTIG_ROWS = 32, 255    # prefill window rows, paged / contiguous
+# (a) and (b): max |logits - reference| / max(1, max |reference|). The
+# routes sum in other orders (fp32) and round the activations to bf16 at
+# other points in each layer (bf16); the largest readings on an H100 were
+# 1.6e-5 and 2.9e-2 (gemma2), 1/6 and 1/2 of these bounds
+DENSE_TOL = {"float32": 1e-4, "bfloat16": 6.25e-2}
+
+
+def phase_tree_ssm_draft(torch, kernels, args, dev="cuda"):
+    """tiny-target (fp32) with a tiny-ssm and a dense-hybrid draft under
+    the static tree (2,2,1,1) and the adaptive bank, paged and contiguous,
+    greedy and at T = 0.8: 4 requests of 16 new tokens. Card tokens equal
+    the CPU port's, greedy tokens equal AR's, and each run launches
+    ssd_chunked exactly (draft Mamba2 layers x 2 scans a step x steps).
+    Returns the launches of every card run by kernel."""
+    from collections import Counter
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    tc = get_config("tiny-target")
+    tp_cpu = init_params(tc, args.seed, "cpu", torch.float32)
+    tp = _tree_to(tp_cpu, dev)
+    rng = np.random.default_rng(args.seed + 41)
+    prompts = [rng.integers(0, tc.vocab_size, size=int(n))
+               for n in rng.integers(4, 40, size=4)]
+    base = dict(max_batch=4, max_len=256, kv_block_size=16, kv_dtype="fp32",
+                seed=5)
+    ar, got, _ = serve(torch, kernels, Engine,
+                       EngineConfig(mode="ar", **base), tp, tc, None, None,
+                       prompts, TREE_SSM_NEW, "tree-ssm: tiny-target ar", dev)
+    total = Counter(got)
+    trees = {"(2,2,1,1)": dict(tree=(2, 2, 1, 1)),
+             "adaptive": dict(adaptive_tree=True, k=4)}
+    for dname in ("tiny-ssm", "hybrid"):
+        dc = ModelConfig(**HYBRID) if dname == "hybrid" else get_config(dname)
+        dp_cpu = init_params(dc, args.seed + 1, "cpu", torch.float32)
+        dp = _tree_to(dp_cpu, dev)
+        ds = _layers(dc)[1]
+        for tree, tkw in trees.items():
+            for layout in ("paged", "contiguous"):
+                for temp in (0.0, TREE_SSM_T):
+                    cfg = EngineConfig(kv_layout=layout, temperature=temp,
+                                       **tkw, **base)
+                    label = f"tree-ssm: {dname} draft, {tree} {layout} T={temp}"
+                    card, got, info = serve(torch, kernels, Engine, cfg, tp,
+                                            tc, dp, dc, prompts, TREE_SSM_NEW,
+                                            label, dev)
+                    total.update(got)
+                    cpu, _, _ = serve(torch, kernels, Engine, cfg, tp_cpu, tc,
+                                      dp_cpu, dc, prompts, TREE_SSM_NEW,
+                                      label + " (CPU)", "cpu")
+                    steps = info["stats"]["steps"]
+                    want = ds * 2 * steps
+                    checks = {
+                        "== CPU port": all(np.array_equal(card[r], cpu[r])
+                                           for r in card),
+                        f"ssd_chunked launches {got.get('ssd_chunked')} == "
+                        f"{ds} Mamba2 layers x 2 scans x {steps} steps":
+                            got.get("ssd_chunked") == want}
+                    if temp == 0.0:
+                        checks["== AR"] = all(np.array_equal(card[r], ar[r])
+                                              for r in card)
+                    log(f"[{label}] " + "; ".join(
+                        f"{k}: {v}" for k, v in checks.items())
+                        + f"; mean_accepted={info['mean_accepted']:.3f}")
+                    for k, v in checks.items():
+                        if not v:
+                            raise SmokeFailure(f"{label}: {k} fails")
+    return dict(total)
+
+
+def _max_err(got, want):
+    """(max |got - want|, max |want|)."""
+    return ((got.float() - want.float()).abs().max().item(),
+            want.float().abs().max().item())
+
+
+def dense_cached(torch, kernels, params, cfg, toks, layout, dtype, ref, dev):
+    """A cached forward of ``toks`` [1, T] in windows: the first T - 16
+    tokens in prefill windows of ``PAGED_ROWS`` (paged, block 64) or
+    ``CONTIG_ROWS`` (contiguous) rows, then ``DENSE_TAIL``'s decode
+    windows, through the kernels and, on caches of their own, through the
+    plain versions. Returns ((a) the kernels' error against the cache-free
+    logits ``ref``, (b) the kernels' error against the plain versions,
+    the largest |logit|, the share of positions whose argmax agrees with
+    ``ref``'s, the kernels' launches, windows)."""
+    from repro_torch.models import forward, init_caches
+    from repro_torch.serving import kv_pool
+    t = toks.shape[1]
+    rows = PAGED_ROWS if layout == "paged" else CONTIG_ROWS
+    head = t - sum(DENSE_TAIL)
+    widths = [min(rows, head - i) for i in range(0, head, rows)] + DENSE_TAIL
+    kw = dict(dtype=dtype)
+    caches = []
+    for _ in range(2):
+        if layout == "paged":
+            nb = -(-t // 64) + 1           # block 0 is the garbage block
+            caches.append(kv_pool.init_paged_caches(cfg, 1, nb, 64, dtype,
+                                                    dev))
+            kw.update(block_tables=torch.arange(
+                1, nb, dtype=torch.int32, device=dev)[None],
+                kv_block_size=64)
+        else:
+            caches.append(init_caches(cfg, 1, t, dtype, dev))
+    v = cfg.vocab_size
+    err_a = err_b = scale = 0.0
+    agree = 0
+    launches = {}
+    pos = 0
+    for w in widths:
+        window = toks[:, pos:pos + w]
+        cpos = torch.full((1,), pos, dtype=torch.long, device=dev)
+        kernels.launches.clear()
+        lg, _ = forward(params, cfg, window, caches=caches[0], cache_pos=cpos,
+                        **kw)
+        for name, n in kernels.launches.items():
+            launches[name] = launches.get(name, 0) + n
+        with _plain_routes():
+            lp, _ = forward(params, cfg, window, caches=caches[1],
+                            cache_pos=cpos, **kw)
+        want = ref[:, pos:pos + w, :v]
+        ea, m = _max_err(lg[..., :v], want)
+        eb, _ = _max_err(lg[..., :v], lp[..., :v])
+        err_a, err_b, scale = max(err_a, ea), max(err_b, eb), max(scale, m)
+        agree += int((lg[..., :v].argmax(-1) == want.argmax(-1)).sum())
+        pos += w
+    return err_a, err_b, scale, agree / t, launches, len(widths)
+
+
+def dense_family(torch, kernels, args, name, card, dev="cuda"):
+    """One family of phase 14 at full width and ``DENSE_LAYERS`` layers,
+    its 1-layer draft beside: (a) and (b) in fp32 and bf16, (c) the
+    engine. Returns the card's launches by kernel."""
+    import dataclasses
+    from collections import Counter
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.interop import cast_params
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.config import ATTN_LOCAL, layer_plan
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.training.optimizer import leaves
+
+    full = get_config(name)
+    cfg = dataclasses.replace(full, num_layers=DENSE_LAYERS)
+    dcfg = dataclasses.replace(full, num_layers=1, name=full.name + "-1l")
+    plan = [s.mixer for s in layer_plan(cfg)]
+    total = Counter()
+    t0 = time.perf_counter()
+    tp = init_params(cfg, args.seed, dev, torch.float32)
+    dp = init_params(dcfg, args.seed + 1, dev, torch.float32)
+    _sync(dev)
+    n_t, n_d = (sum(x.numel() for x in leaves(p)) for p in (tp, dp))
+    log(f"[dense {name}] depth cut {full.num_layers} -> {DENSE_LAYERS} "
+        f"layers ({plan.count(ATTN_LOCAL)} local, "
+        f"{DENSE_LAYERS - plan.count(ATTN_LOCAL)} global; window "
+        f"{cfg.sliding_window}, attention softcap {cfg.attn_softcap}, final "
+        f"softcap {cfg.final_softcap}, scale {cfg.attn_scale or 'hd^-0.5'}, "
+        f"layernorm {cfg.use_layernorm}, parallel {cfg.parallel_block}, "
+        f"sandwich norms {cfg.post_block_norms}), d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} (G {cfg.n_heads // cfg.n_kv_heads}), "
+        f"vocab {cfg.vocab_size}; draft: the same at 1 layer; "
+        f"{n_t / 1e9:.2f}B + {n_d / 1e9:.2f}B random params from --seed, "
+        f"made on the card in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(args.seed + 53)
+    t = DENSE_LONG[name]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, t))).to(dev)
+    prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
+               for _ in range(4)]
+    fp32_tokens = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        if dt == torch.bfloat16:
+            tp, dp = cast_params(tp, dt), cast_params(dp, dt)
+            torch.cuda.empty_cache()
+        # (a) and (b): one cache-free forward (flash_attention) as the
+        # reference, then the cached windows on both layouts
+        kernels.launches.clear()
+        ref, _ = forward(tp, cfg, toks, dtype=dt)
+        free = dict(kernels.launches)
+        total.update(free)
+        if free != {"flash_attention": DENSE_LAYERS}:
+            raise SmokeFailure(f"{name}: cache-free launches {free}")
+        for layout in ("paged", "contiguous"):
+            t1 = time.perf_counter()
+            ea, eb, scale, agree, got, nw = dense_cached(
+                torch, kernels, tp, cfg, toks, layout, dt, ref, dev)
+            total.update(got)
+            kname = ("decode_attention_paged" if layout == "paged"
+                     else "decode_attention")
+            tol = DENSE_TOL[dname] * max(1.0, scale)
+            log(f"[dense {name}] {dname} {layout}, {t} tokens in {nw} "
+                f"windows ({time.perf_counter() - t1:.1f}s): (a) cached vs "
+                f"cache-free max_abs_err={ea:.3e}, (b) kernels vs plain "
+                f"max_abs_err={eb:.3e}, tol={tol:.3e} (max |logit| "
+                f"{scale:.2f}); argmax agreement {agree:.4f}; launches "
+                f"{got}")
+            if got != {kname: DENSE_LAYERS * nw}:
+                raise SmokeFailure(f"{name} {layout}: launches {got}, "
+                                   f"expected {DENSE_LAYERS * nw} {kname}")
+            if not (ea <= tol and eb <= tol):
+                raise SmokeFailure(f"{name} {dname} {layout}: cached logits "
+                                   f"off by {ea} / {eb} > {tol}")
+        del ref
+        torch.cuda.empty_cache()
+        # (c): the engine, K = 8, paged KV in the params' dtype
+        kv = "fp32" if dt == torch.float32 else "bf16"
+        runs = [("pard", EngineConfig(kv_dtype=kv, mode="pard", k=8))]
+        if dt == torch.float32:
+            runs.append(("ar", EngineConfig(kv_dtype=kv, mode="ar")))
+        else:                                   # warm before the timed run
+            warm = Engine(tp, cfg, dp, dcfg, config=runs[0][1], device=dev)
+            warm.submit(prompts[0][:32], 8)
+            warm.run()
+            del warm
+        for mode, c in runs:
+            d_p, d_c = (None, None) if mode == "ar" else (dp, dcfg)
+            out, got, info = serve(torch, kernels, Engine, c, tp, cfg, d_p,
+                                   d_c, prompts, DENSE_NEW,
+                                   f"dense {name} {mode} {dname}", dev)
+            total.update(got)
+            log(f"[dense {name}] engine {mode} {dname} (K 8, paged {kv} KV, "
+                f"4 requests of {DENSE_NEW}): {info['tok_s']:.1f} tok/s, "
+                f"mean accepted {info['mean_accepted']:.3f} on {card}")
+            if dt == torch.float32:
+                fp32_tokens[mode] = out
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(fp32_tokens["pard"][r], fp32_tokens["ar"][r])
+               for r in fp32_tokens["ar"])
+    log(f"[dense {name}] fp32 PARD tokens == AR tokens: {same}")
+    if not same:
+        raise SmokeFailure(f"{name}: fp32 PARD tokens differ from AR")
+    del tp, dp
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_dense(torch, kernels, args, dev="cuda"):
+    """deepseek-67b, command-r-35b and gemma2-27b at full width and
+    ``DENSE_LAYERS`` layers (random weights made on the card): (a) cached
+    logits (paged windows of 32 rows and contiguous windows of 255, then
+    one-row and 8-row decode windows) against one cache-free forward
+    through flash_attention, gemma2 over 4352 > 4096 tokens so its local
+    layers' window and softcap bite; (b) the same cached windows through
+    the plain versions; (c) an Engine in mode pard, K = 8, paged KV, 4
+    requests of 32 new tokens with a 1-layer draft of the family: bf16
+    tok/s and mean accepted, fp32 PARD tokens equal to AR's. Returns the
+    launches by kernel and family."""
+    card = card_line()
+    out = {}
+    for name in DENSE_FAMILIES:
+        t0 = time.perf_counter()
+        out[name] = dense_family(torch, kernels, args, name, card, dev)
+        log(f"[phase time] dense {name}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3643,6 +3948,8 @@ def main(argv=None) -> int:
         launches["ssd_chunked_bwd"] = ssm_launches["ssd_chunked_bwd"]
         for name in ("ssd_chunked", "ssd_chunked_bwd"):
             timing[name]["train_launches"] = ssm_launches[name]
+        tree_ssm = timed(phase_tree_ssm_draft, torch, kernels, args)
+        dense = timed(phase_dense, torch, kernels, args)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3663,6 +3970,11 @@ def main(argv=None) -> int:
         timing[name]["trained_launches"] = {
             label: got[name] for label, got in trained.items()
             if got.get(name)}
+        # phase 13's tree runs with Mamba2 / hybrid drafts, phase 14's
+        # dense families
+        timing[name]["tree_ssm_launches"] = tree_ssm.get(name, 0)
+        timing[name]["dense_launches"] = {
+            fam: got[name] for fam, got in dense.items() if got.get(name)}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=launches[name],

@@ -1,6 +1,7 @@
 """Config registry of the port: the paper's draft/target families, the
-tiny test models and mamba2-130m (copies of ``repro.configs.paper_models``
-/ ``tiny`` / ``mamba2_130m``).
+tiny test models, mamba2-130m and the dense families deepseek-67b,
+command-r-35b and gemma2-27b (copies of the JAX package's
+``repro.configs`` modules of the same names).
 
 ``get_config(name)`` takes the dashed public id (e.g. ``llama3.1-8b``) or a
 ``-smoke`` suffix for the reduced same-family variant. The JAX package's
@@ -9,9 +10,11 @@ other architectures come with the slices that port their layers.
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import mamba2_130m, paper_models, tiny
+from . import (command_r_35b, deepseek_67b, gemma2_27b, mamba2_130m,
+               paper_models, tiny)
 
-CONFIGS = {mamba2_130m.CONFIG.name: mamba2_130m.CONFIG}
+CONFIGS = {m.CONFIG.name: m.CONFIG for m in (
+    command_r_35b, gemma2_27b, deepseek_67b, mamba2_130m)}
 CONFIGS.update(paper_models.CONFIGS)
 CONFIGS.update(tiny.CONFIGS)
 

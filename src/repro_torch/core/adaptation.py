@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.pard_attention import PardMaskInfo
+from ..models.config import ATTN_LOCAL, scan_plan
 from ..models.transformer import forward
 from .cod import IGNORE
 from .spec_decode import has_ssm
@@ -34,6 +35,27 @@ def refuse_ssm_cod(cfg) -> None:
             f"mask token; train it with the AR objective")
 
 
+def has_local_layers(cfg) -> bool:
+    plan = scan_plan(cfg)
+    return any(s.mixer == ATTN_LOCAL for s in plan.prefix + plan.period)
+
+
+def refuse_windowed_cod(cfg, seq_len: int) -> None:
+    """COD's mask has no window: a mask token at base n attends to every
+    real token before n. Served, a local layer sees only the last
+    ``sliding_window`` positions, so on a sequence longer than the window
+    COD would train the local layers on context they never see (the JAX
+    package does). The port refuses such a sequence; positions of a packed
+    row run 0 .. seq_len - 1."""
+    if seq_len > cfg.sliding_window and has_local_layers(cfg):
+        raise ValueError(
+            f"PARD adaptation (COD) of {cfg.name!r} on {seq_len}-token "
+            f"sequences: its local attention layers see only "
+            f"{cfg.sliding_window} positions when served, and the COD mask "
+            f"has no window; train on sequences of at most "
+            f"{cfg.sliding_window} tokens or with the AR objective")
+
+
 def _token_nll(logits, labels):
     """Per-token negative log-likelihood in float32; 0 where the label is
     IGNORE."""
@@ -49,8 +71,12 @@ def pard_adaptation_loss(params, cfg, batch, *, k_max: int = 0,
     position_ids, labels, segment, base; int). Returns (loss, metrics):
     ``loss_subtask_s`` for s = 1..k_max with Eq. 8, ``token_mean_nll`` and
     ``n_loss_tokens``, all tensors. Raises ``ValueError`` for a config
-    with SSM layers (``refuse_ssm_cod``)."""
+    with SSM layers (``refuse_ssm_cod``), and for one with local attention
+    layers when the row's positions span more than its window
+    (``refuse_windowed_cod``)."""
     refuse_ssm_cod(cfg)
+    if has_local_layers(cfg):       # the span's read waits for the device
+        refuse_windowed_cod(cfg, int(batch["position_ids"].max()) + 1)
     seg = batch["segment"].to(torch.int32).contiguous()
     base = batch["base"].to(torch.int32).contiguous()
     mask_info = PardMaskInfo(seg, base)

@@ -45,7 +45,9 @@ SSM model over a window with slots past what the row keeps (the draft's
 mask chain, the verify window's rejected drafts, pads of a short prompt
 chunk or of the AR window) collects its Mamba2 records (``collect_ssm``)
 and ``gather_ssm_states`` then sets each row's state to the one after its last
-kept token.
+kept token. A tree step's draft forward is the flat step's, so a Mamba2 or
+hybrid draft drafts trees; a tree's target must be attention-only, since
+only positional KV can take back a packed tree window's losing branches.
 
 ``generate_ar`` / ``generate_spec`` run a uniform batch to completion on
 the unchunked steps (``chunked=False``: no prefill cursor, every row
@@ -529,10 +531,6 @@ class SpecDecoder:
                     "tree verification relies on positional KV rollback; "
                     "an SSM/hybrid target cannot roll back a packed tree "
                     "window")
-            if draft_cfg is not None and has_ssm(draft_cfg):
-                raise NotImplementedError(
-                    "tree drafting with an SSM/hybrid draft is not ported "
-                    "yet")
             k = tree.max_depth
         self.tree: Optional[TemplateBank] = tree
         self.k = k

@@ -5,8 +5,9 @@ into a numpy array (``jax.tree.map(np.asarray, params)``: nested dicts and
 lists, the stacked ``params["scan"]`` leaves included) and returns the
 port's tree of tensors. Both packages use the same einsum layouts
 (``wq [d, Hq, hd]``, ``wo [Hq, hd, d]``, ...), so the conversion is a copy.
-Leaves are stored in ``dtype`` except the norm scales, which stay float32:
-bf16 storage equals the JAX code's ``.astype(x.dtype)`` at use.
+Leaves are stored in ``dtype`` except the norm scales and LayerNorm
+biases (``models.transformer.F32_LEAVES``), which stay float32: bf16
+storage equals the JAX code's ``.astype(x.dtype)`` at use.
 ``eagle_params_from_numpy`` does the same for an EAGLE head's params
 (the JAX ``init_eagle`` tree: ``fuse``, ``layer.{norm1, mixer, norm2,
 mlp}``, ``out_norm``). ``params_to_numpy`` is the inverse of both: the

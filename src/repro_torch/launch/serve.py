@@ -6,7 +6,9 @@ weights, or on checkpoints, and stream synthetic requests through it.
       [--target-ckpt a.npz --draft-ckpt b.npz]
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
-the tiny-* configs there). ``--target-ckpt`` / ``--draft-ckpt`` restore
+the tiny-* and ``-smoke`` configs there, e.g. ``--target gemma2-27b-smoke
+--draft gemma2-27b-smoke``; a Mamba2 or hybrid draft such as ``--draft
+tiny-ssm`` also drafts trees for a dense target). ``--target-ckpt`` / ``--draft-ckpt`` restore
 checkpoints of either package (``training.checkpoint``, e.g. what
 ``repro_torch.examples.pard_adaptation_train`` writes) into the seeded
 weights. The prompts are drawn from the Markov corpus

@@ -10,7 +10,8 @@ the tiny-* configs there). Dense, Mamba2 (``--arch mamba2-130m``,
 (Mamba2 layers through the SSD scan's forward and backward kernels);
 ``--pard`` with a model that has SSM layers raises ``ValueError`` before
 any step (the recurrence would carry COD's labels into its mask
-tokens). The flags are the JAX launcher's
+tokens), as it does for a model with local attention layers (gemma2) when
+``--seq`` is longer than the window (COD's mask has none). The flags are the JAX launcher's
 (``repro.launch.train``), plus ``--device``; checkpoints (``--init``,
 ``--out``) are in its format, so either package reads the other's.
 Params are float32; the activations float32, as the JAX Trainer's
@@ -32,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--pard", action="store_true",
                     help="PARD adaptation objective instead of AR (dense "
-                         "models only: SSM and hybrid models raise)")
+                         "models only: SSM and hybrid models raise, and so "
+                         "do local-attention models past their window)")
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--r", type=float, default=0.7)
     ap.add_argument("--r-min", type=float, default=0.2)
@@ -74,6 +76,7 @@ def main(argv=None):
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core.adaptation import refuse_windowed_cod
     from repro_torch.data.pipeline import MarkovCorpus
     from repro_torch.device import resolve_device
     from repro_torch.models import init_params
@@ -81,6 +84,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.pard:
+        refuse_windowed_cod(cfg, args.seq)
     params = init_params(cfg, args.seed, device, torch.float32)
     if args.init:
         params = checkpoint.restore(args.init, params)

@@ -1,4 +1,5 @@
-"""Dense building blocks: RMSNorm, RoPE, softcap, embeddings, gated MLP.
+"""Dense building blocks: RMSNorm, LayerNorm, RoPE, softcap, embeddings,
+gated MLP.
 
 Port of the dense half of ``repro.models.layers``. Params are plain dicts
 of tensors with the JAX package's leaf names and layouts. Matrices are
@@ -22,6 +23,37 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-5,
     scale = params["scale"].float()
     y = y * (1.0 + scale) if gemma_style else y * scale
     return y.to(dtype)
+
+
+def layernorm_apply(params, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"].float() \
+        + params["bias"].float()
+    return y.to(dtype)
+
+
+def norm_shapes(cfg):
+    """{name: (shape, init)} of one norm of ``cfg``'s flavour: LayerNorm
+    adds a zero ``bias`` to the unit ``scale``."""
+    d = cfg.d_model
+    shapes = {"scale": ((d,), "ones")}
+    if cfg.use_layernorm:
+        shapes["bias"] = ((d,), "zeros")
+    return shapes
+
+
+def norm_apply(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The norm of ``cfg``'s flavour (the JAX ``make_norm``): LayerNorm
+    under ``use_layernorm``; else RMSNorm, multiplying by (1 + scale) under
+    ``post_block_norms`` (gemma2)."""
+    if cfg.use_layernorm:
+        return layernorm_apply(params, x, cfg.norm_eps)
+    return rmsnorm_apply(params, x, cfg.norm_eps,
+                         gemma_style=cfg.post_block_norms)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Decoder-only transformer on paged KV pools or contiguous KV caches.
 
 Port of ``repro.models.transformer`` for dense GQA, Mamba2 (SSM) and
-dense hybrid configs. Params keep the
+dense hybrid configs, with the dense families' block variants: LayerNorm
+and the parallel attention + MLP block (command-r), sandwich norms with
+(1 + scale) RMSNorm (gemma2). Params keep the
 JAX package's tree: ``embed``, ``final_norm``, ``prefix`` (a list of layer
 dicts) and ``scan`` (one dict per period position, every leaf stacked on a
 leading ``n_repeats`` axis); the layer loop indexes the stacked leaves.
@@ -42,23 +44,24 @@ from .config import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE, MLP_NONE, SSM,
                      ModelConfig, scan_plan)
 from .ssm import init_mamba2_state, mamba2_apply
 
-# leaves the JAX code multiplies in float32 (norm scales, the Mamba2 conv,
-# decay, skip and gate-norm leaves); every other leaf is cast to the
-# activation dtype at use, so the port stores it in that dtype
-F32_LEAVES = ("scale", "q_norm", "k_norm", "conv_w", "conv_b", "A_log", "D",
-              "dt_bias", "ssm_norm")
+# leaves the JAX code multiplies in float32 (norm scales and LayerNorm
+# biases, the Mamba2 conv, decay, skip and gate-norm leaves); every other
+# leaf is cast to the activation dtype at use, so the port stores it in
+# that dtype
+F32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "conv_w", "conv_b",
+              "A_log", "D", "dt_bias", "ssm_norm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configs outside the ported slices: dense GQA decoders,
-    Mamba2 (SSM) stacks and hybrids of the two with dense MLPs."""
+    """Raise for configs outside the ported slices: dense GQA decoders
+    (LayerNorm, parallel blocks and sandwich norms included), Mamba2 (SSM)
+    stacks and hybrids of the two with dense MLPs."""
     plan = scan_plan(cfg)
     bad = [s for s in plan.prefix + plan.period
            if s.mixer not in (ATTN_GLOBAL, ATTN_LOCAL, SSM)
            or s.mlp not in (MLP_DENSE, MLP_NONE)
            or (s.mlp == MLP_NONE and s.mixer != SSM)]
-    flags = [f for f in ("use_layernorm", "parallel_block", "post_block_norms",
-                         "abs_pos", "is_encoder_decoder") if getattr(cfg, f)]
+    flags = [f for f in ("abs_pos", "is_encoder_decoder") if getattr(cfg, f)]
     if bad or flags or cfg.attn_kind != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: only dense GQA, Mamba2 and dense hybrid decoders "
@@ -69,7 +72,10 @@ def check_supported(cfg: ModelConfig) -> None:
 def _layer_shapes(cfg: ModelConfig, spec):
     """{name: (shape, init)}: init is a fan-in (normal / sqrt(fan_in)),
     "ones", "zeros", "conv" (normal x 0.1) or "a_log" (log(linspace(1, 16,
-    H))) — the JAX package's init_gqa / init_mlp / init_mamba2."""
+    H))) — the JAX package's _init_layer with init_gqa / init_mlp /
+    init_mamba2. A parallel block has no ``norm2`` (its MLP reads
+    ``norm1``'s output); sandwich norms add ``post_norm1`` (and
+    ``post_norm2`` with an MLP)."""
     d = cfg.d_model
     if spec.mixer == SSM:
         d_in, n, h = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_nheads
@@ -82,10 +88,15 @@ def _layer_shapes(cfg: ModelConfig, spec):
                  "out_proj": ((d_in, d), d_in)}
     else:
         mixer = gqa_shapes(cfg)
-    layer = {"norm1": {"scale": ((d,), "ones")}, "mixer": mixer}
+    layer = {"norm1": L.norm_shapes(cfg), "mixer": mixer}
     if spec.mlp == MLP_DENSE:
-        layer.update(norm2={"scale": ((d,), "ones")},
-                     mlp=mlp_shapes(d, cfg.d_ff, cfg.mlp_gated))
+        if not cfg.parallel_block:
+            layer["norm2"] = L.norm_shapes(cfg)
+        layer["mlp"] = mlp_shapes(d, cfg.d_ff, cfg.mlp_gated)
+    if cfg.post_block_norms:
+        layer["post_norm1"] = L.norm_shapes(cfg)
+        if spec.mlp != MLP_NONE:
+            layer["post_norm2"] = L.norm_shapes(cfg)
     return layer
 
 
@@ -125,7 +136,7 @@ def _param_tree(cfg: ModelConfig):
     embed = {"embedding": ((v, d), d)}
     if not cfg.tie_embeddings:
         embed["unembed"] = ((v, d), d)
-    return {"embed": embed, "final_norm": {"scale": ((d,), "ones")},
+    return {"embed": embed, "final_norm": L.norm_shapes(cfg),
             "prefix": [_layer_shapes(cfg, s) for s in plan.prefix],
             "scan": [_stack(_layer_shapes(cfg, s), plan.n_repeats)
                      for s in plan.period]}
@@ -239,7 +250,7 @@ def _cache_len(caches) -> int:
 
 def _apply_layer(lp, cfg: ModelConfig, spec, x, *, cache=None, batch=None,
                  positions=None, mask_info=None, collect=None):
-    h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+    h = L.norm_apply(lp["norm1"], x, cfg)
     if spec.mixer == SSM:
         y, record = mamba2_apply(lp["mixer"], cfg, h, state=cache,
                                  collect_states=collect is not None)
@@ -249,11 +260,18 @@ def _apply_layer(lp, cfg: ModelConfig, spec, x, *, cache=None, batch=None,
         window = cfg.sliding_window if spec.mixer == ATTN_LOCAL else 0
         y = gqa_apply(lp["mixer"], cfg, h, layer_window=window, cache=cache,
                       batch=batch, positions=positions, mask_info=mask_info)
-    x = x + y
+    if cfg.post_block_norms:
+        y = L.norm_apply(lp["post_norm1"], y, cfg)
     if spec.mlp == MLP_NONE:
-        return x
-    h = L.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(lp["mlp"], h, act=cfg.mlp_act)
+        return x + y
+    if cfg.parallel_block:
+        return x + y + L.mlp_apply(lp["mlp"], h, act=cfg.mlp_act)
+    x = x + y
+    m = L.mlp_apply(lp["mlp"], L.norm_apply(lp["norm2"], x, cfg),
+                    act=cfg.mlp_act)
+    if cfg.post_block_norms:
+        m = L.norm_apply(lp["post_norm2"], m, cfg)
+    return x + m
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
@@ -323,7 +341,7 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     if last_only:
         x = x[:, -1:]
     hidden = x
-    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    x = L.norm_apply(params["final_norm"], x, cfg)
     logits = L.unembed_apply(params["embed"], x, cfg)
     if return_hidden:
         return logits, caches, hidden

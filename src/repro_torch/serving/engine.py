@@ -20,7 +20,8 @@ over the scheduler (host) and the executor (device).
     (or the engine seed and its request id), never on the batch;
   * tree drafting (``tree=`` a static template, ``adaptive_tree=True`` the
     default bank with per-request re-selection): the PARD draft fills a
-    candidate tree and one forward verifies it, still token-identical;
+    candidate tree and one forward verifies it, still token-identical
+    (a Mamba2 or hybrid draft too; the target attention-only);
   * ``prefix_cache=True`` (paged only; attention-only models) reuses
     prompt KV across requests: full prompt blocks register under
     content keys, admission maps the longest computed block-aligned

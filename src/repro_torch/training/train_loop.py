@@ -5,7 +5,9 @@ batch on ``device`` (the CUDA card unless the caller asks for another):
 the loss's forward through the attention and SSD kernels, autograd's
 backward through their backward kernels, then ``AdamW.update`` in place.
 Mamba2 and hybrid models train with the AR objective; PARD adaptation of
-a model with SSM layers raises (``core.adaptation.refuse_ssm_cod``). A step
+a model with SSM layers raises (``core.adaptation.refuse_ssm_cod``), and
+so does that of a model with local attention layers on sequences longer
+than its window (``refuse_windowed_cod``, at ``make_batch``). A step
 draws no random numbers: COD packing takes numpy's ``default_rng(step)``,
 as the JAX Trainer does. Sharded training (a ``mesh``, param or data
 shardings) is not ported yet and raises.
@@ -19,7 +21,8 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ..core.adaptation import ar_loss, pard_adaptation_loss, refuse_ssm_cod
+from ..core.adaptation import (ar_loss, pard_adaptation_loss,
+                               refuse_ssm_cod, refuse_windowed_cod)
 from ..core.cod import CodConfig, pack_batch
 from ..device import resolve_device
 from ..models.config import ModelConfig
@@ -76,6 +79,7 @@ class Trainer:
         if self.loss_kind == "ar":
             return {"tokens": torch.from_numpy(np.asarray(tokens)).to(
                 self.device)}
+        refuse_windowed_cod(self.cfg, np.shape(tokens)[1])
         cod = self.cod or CodConfig()
         packed = pack_batch(tokens, cod, self.cfg.mask_token_id, seed=seed)
         packed.pop("n_tokens", None)

@@ -1177,7 +1177,7 @@ def test_cuda_keys_draw_the_cpu_bits(cuda):
                        prng.categorical(keys, logits))
 
 
-def _sampled_tiny_tokens(dev, params, **kw):
+def _sampled_tiny_tokens(dev, params, stats=None, **kw):
     tc, tp, dc, dp = params
     eng = Engine(tp, tc, dp, dc, config=EngineConfig(
         k=4, max_batch=2, max_len=256, kv_block_size=16, kv_dtype="fp32",
@@ -1188,7 +1188,10 @@ def _sampled_tiny_tokens(dev, params, **kw):
              SamplingParams(max_new=16), SamplingParams(max_new=16, seed=11)]
     rids = {eng.submit(p, params=sp): i
             for i, (p, sp) in enumerate(zip(prompts, specs))}
-    return {rids[c.rid]: c.tokens for c in eng.run()}
+    toks = {rids[c.rid]: c.tokens for c in eng.run()}
+    if stats is not None:
+        stats.update(eng.stats)
+    return toks
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(kv_layout="contiguous"),
@@ -1588,3 +1591,100 @@ def test_trained_tiny_engine_on_card_equals_cpu(cuda, kw):
                                       _tree_to(pp, cuda)), **kw)
     for i in range(3):
         np.testing.assert_array_equal(got[i], want[i])
+
+
+# ------------------------------------------- trees with Mamba2 / hybrid drafts
+@pytest.mark.parametrize("kw", [dict(tree=(2, 2, 1, 1)),
+                                dict(adaptive_tree=True),
+                                dict(tree=(2, 2, 1, 1),
+                                     kv_layout="contiguous")])
+@pytest.mark.parametrize("draft", ["tiny-ssm", "hybrid"])
+def test_tree_with_ssm_draft_on_card_equals_cpu(cuda, draft, kw):
+    """tiny-target with a Mamba2 or dense-hybrid draft under a tree, a
+    greedy and two sampled requests at T = 0.8: the card's tokens equal
+    the CPU port's; ssd_chunked launches twice per draft Mamba2 layer a
+    step (the collecting scan and the gather)."""
+    from repro_torch.models.config import ModelConfig
+    tc = get_config("tiny-target")
+    dc = ModelConfig(**HYBRID) if draft == "hybrid" else get_config(draft)
+    tp = init_params(tc, 0, "cpu", torch.float32)
+    dp = init_params(dc, 1, "cpu", torch.float32)
+    want = _sampled_tiny_tokens("cpu", (tc, tp, dc, dp), **kw)
+    kernels.launches.clear()
+    eng_stats = {}
+    got = _sampled_tiny_tokens(cuda, (tc, _tree_to(tp, cuda), dc,
+                                      _tree_to(dp, cuda)), stats=eng_stats,
+                               **kw)
+    n_ssm = sum(1 for i in range(dc.num_layers)
+                if draft == "tiny-ssm" or i % 2 == 0)
+    assert kernels.launches["ssd_chunked"] == 2 * n_ssm * eng_stats["steps"]
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], want[i])
+
+
+# --------------------------------------------- dense families (-smoke size)
+DENSE = ["deepseek-67b", "command-r-35b", "gemma2-27b"]
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_family_cached_equals_cache_free_on_card(cuda, name, layout):
+    """The family's -smoke config in fp32 on the card over 96 tokens
+    (gemma2's window of 64 bites): cached windows of 40, 40, 8 and 8 x 1
+    rows through the kernels equal one cache-free forward through
+    flash_attention and the CPU port's logits within 2e-3."""
+    from repro_torch.models import init_caches
+    cfg = get_config(name + "-smoke")
+    params = init_params(cfg, 0, "cpu", torch.float32)
+    on = _tree_to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 96)))
+    cpu, _ = forward(params, cfg, toks, dtype=torch.float32)
+    kernels.launches.clear()
+    free, _ = forward(on, cfg, toks.to(cuda), dtype=torch.float32)
+    assert kernels.launches["flash_attention"] == cfg.num_layers
+    kw = dict(dtype=torch.float32)
+    if layout == "paged":
+        caches = kv_pool.init_paged_caches(cfg, 2, 7, 32, torch.float32,
+                                           cuda)
+        kw.update(block_tables=torch.tensor(
+            [[1, 3, 5], [2, 4, 6]], dtype=torch.int32, device=cuda),
+            kv_block_size=32)
+    else:
+        caches = init_caches(cfg, 2, 96, torch.float32, cuda)
+    outs, t = [], 0
+    for w in [40, 40, 8] + [1] * 8:
+        lg, _ = forward(on, cfg, toks[:, t:t + w].to(cuda), caches=caches,
+                        cache_pos=torch.full((2,), t, device=cuda), **kw)
+        outs.append(lg)
+        t += w
+    v = cfg.vocab_size
+    cached = torch.cat(outs, 1)[..., :v].cpu()
+    torch.testing.assert_close(free[..., :v].cpu(), cpu[..., :v],
+                               atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(cached, cpu[..., :v], atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_family_pard_equals_ar_on_card(cuda, name):
+    """The -smoke config with its 1-layer cut as draft, fp32, K = 4,
+    paged: PARD tokens equal AR's and the CPU port's PARD tokens."""
+    cfg = get_config(name + "-smoke")
+    dcfg = dataclasses.replace(cfg, num_layers=1, name=cfg.name + "-1l")
+    tp = init_params(cfg, 0, "cpu", torch.float32)
+    dp = init_params(dcfg, 1, "cpu", torch.float32)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (90, 20, 70)]
+
+    def run(dev, mode):
+        eng = Engine(_tree_to(tp, dev), cfg, _tree_to(dp, dev), dcfg,
+                     config=EngineConfig(mode=mode, k=4, max_batch=2,
+                                         max_len=160, kv_block_size=16,
+                                         kv_dtype="fp32"), device=dev)
+        rids = {eng.submit(p, 12): i for i, p in enumerate(prompts)}
+        return {rids[c.rid]: c.tokens for c in eng.run()}
+
+    pard, ar, cpu = run(cuda, "pard"), run(cuda, "ar"), run("cpu", "pard")
+    for i in range(3):
+        np.testing.assert_array_equal(pard[i], ar[i])
+        np.testing.assert_array_equal(pard[i], cpu[i])

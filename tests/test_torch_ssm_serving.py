@@ -151,14 +151,16 @@ def test_layouts_and_prefill_chunks_agree():
 
 
 def test_trees_with_ssm_models_raise():
+    """An SSM target under a tree raises; an SSM draft under a dense
+    target takes the tree (tests/test_torch_tree_ssm_draft.py)."""
     ssm_cfg, ssm_p, _, _ = models("tiny-ssm")
     dense = get_config("tiny-target")
     from repro_torch.models import init_params
     dense_p = init_params(dense, 0, "cpu", torch.float32)
     with pytest.raises(NotImplementedError, match="SSM/hybrid target"):
         sd.SpecDecoder(ssm_p, ssm_cfg, ssm_p, ssm_cfg, tree=(2, 1))
-    with pytest.raises(NotImplementedError, match="SSM/hybrid draft"):
-        sd.SpecDecoder(dense_p, dense, ssm_p, ssm_cfg, tree=(2, 1))
+    dec = sd.SpecDecoder(dense_p, dense, ssm_p, ssm_cfg, tree=(2, 1))
+    assert dec.k == 2 and dec.tree.max_slots == 5
 
 
 def test_serve_launcher_runs_tiny_ssm(capsys):
