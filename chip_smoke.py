@@ -81,9 +81,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      paged PARD on int8 KV and the paged adaptive tree on fp8 KV (their
      kv_capacity and the share of tokens equal to the bf16 run's up to the
      first divergence), paged PARD and the paged adaptive tree at T = 1.0
-     with 2 greedy requests of 8 (at most 64 new tokens), VSD greedy and
-     VSD at T = 1.0 (4 requests, at most 16; K = 8 draft forwards a step), each sampled run
-     repeated bit for bit and its sampled step's device ops, launches and
+     with 2 greedy requests of 4 (at most 32 new tokens, as the 8-bit
+     runs), VSD greedy and VSD at T = 1.0 (4 requests, at most 16; K = 8
+     draft forwards a step), each sampled run repeated bit for bit and its sampled step's device ops, launches and
      device time profiled beside the greedy-only step's on one engine
      state; paged PARD, the paged adaptive tree and paged PARD at T = 1.0
      again with two steps in flight (``Engine.run(pipelined=True)``, its
@@ -204,7 +204,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      both within ``DENSE_TOL`` of the largest logit, with exact launches;
      (c) an Engine in mode pard, K = 8, paged KV, 4 requests of 32 new
      tokens: bf16 tok/s and mean accepted beside the card, fp32 PARD
-     tokens equal to AR's.
+     tokens equal to AR's;
+ 15. MoE layers: granite-moe-3b-a800m at full width and all 32 layers
+     (40 experts top 8, G 3 at head dim 64) and the jamba hybrid at full
+     width and 2 layers (one Mamba2 layer with a dense MLP, one attention
+     layer without RoPE with 16 experts top 2; 256 SSD heads), each with
+     a 1-layer draft of its family, random weights made on the card:
+     (a) in fp32 and bf16 one cache-free forward over 1023 tokens (odd
+     and past the 256-token group, so routing drops nothing), its expert
+     choices recorded, and the cached windows of 32 rows (paged) and 63
+     rows (contiguous), then the decode windows, with those choices
+     replayed (``moe_routing``; each window's own router logits within
+     ``DENSE_TOL`` of the recorded ones, each own choice that differs a
+     near-tie of the recorded logits, in fp32 at most 1 in 1000 such
+     flips) against it, (b) the same windows through the plain
+     versions, within ``DENSE_TOL`` with exact launches; (c) an Engine,
+     K = 8, paged KV, 4 requests of --prompt-len + 32 new tokens: fp32
+     PARD (and for granite the adaptive tree) equal to AR, bf16 PARD
+     timed, and for granite bf16 PARD pipelined with its host side under
+     ``set_sync_debug_mode("error")``, tokens equal to the sync run's;
+     then (e) granite AR training at full width and depth (B 4, N 513:
+     2048 tokens in capacity groups of 256), a B = 1 step through the
+     kernels and the plain versions, 3 ``Trainer.fit`` steps with each
+     layer recomputed in the backward pass, a finite loss.
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers (a serving-attention kernel's row also lists every timing row of
@@ -213,14 +235,16 @@ and times under ``int8`` / ``fp8``; every row lists its launches in each
 run of phase 10 under ``generate_launches`` and of phase 11 under
 ``trained_launches``; the two SSD rows their launches in phase 12's
 mamba2-130m run under ``train_launches``; every row its launches in
-phase 13 under ``tree_ssm_launches`` and per family of phase 14 under
-``dense_launches``) and the result line ``{"ok":
+phase 13 under ``tree_ssm_launches``, per family of phase 14 under
+``dense_launches`` and in phase 15 under ``moe_launches``) and the
+result line ``{"ok":
 true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -1221,16 +1245,29 @@ def sync_errors(torch):
         torch.cuda.set_sync_debug_mode(old)
 
 
+def _host_side(eng):
+    return ((eng.sched, "admit"), (eng.ex, "sync_tables"),
+            (eng.sched, "dispatch"))
+
+
 def guard_host_side(torch, eng):
     """Run the engine's admit, sync_tables and dispatch under
     ``sync_errors``: the host side of the pipelined loop must not wait for
-    the step in flight."""
-    for obj, name in ((eng.sched, "admit"), (eng.ex, "sync_tables"),
-                      (eng.sched, "dispatch")):
+    the step in flight. Each wrapper holds its engine in a reference
+    cycle: ``unguard_host_side`` drops them."""
+    for obj, name in _host_side(eng):
         def guarded(*a, _fn=getattr(obj, name), **k):
             with sync_errors(torch):
                 return _fn(*a, **k)
         setattr(obj, name, guarded)
+
+
+def unguard_host_side(eng):
+    """Drop ``guard_host_side``'s wrappers, so that the engine and the
+    weights it holds leave the card when the last reference goes, not when
+    the cyclic garbage collector next runs."""
+    for obj, name in _host_side(eng):
+        obj.__dict__.pop(name, None)
 
 
 def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
@@ -1252,6 +1289,7 @@ def serve(torch, kernels, Engine, cfg, tp, tc, dp, dc, prompts, max_new,
     comps = eng.run(pipelined=pipelined)
     _sync(dev)
     wall = time.perf_counter() - t0
+    unguard_host_side(eng)
     launches = dict(kernels.launches)         # just after
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     steps = eng.stats["steps"]
@@ -1364,8 +1402,9 @@ def loop_runs(torch, kernels, Engine, runs, tokens, infos, tp, tc, dp, dc,
         if label not in PIPELINED:
             continue
         opt = opt[0] if opt else {}
+        reqs = prompts[:opt.get("requests", len(prompts))]
         got, _, info = serve(torch, kernels, Engine, cfg, tp, tc, dp, dc,
-                             prompts, opt.get("max_new", args.max_new),
+                             reqs, opt.get("max_new", args.max_new),
                              f"{label} pipelined", dev,
                              greedy=opt.get("greedy", 0), pipelined=True)
         sync = infos[label]
@@ -1387,7 +1426,7 @@ def loop_runs(torch, kernels, Engine, runs, tokens, infos, tp, tc, dp, dc,
         if not same:
             raise SmokeFailure(f"pipelined {label}: tokens differ from the "
                                f"synchronous run's")
-        if not base <= steps <= base + len(prompts):
+        if not base <= steps <= base + len(reqs):
             raise SmokeFailure(f"pipelined {label}: {steps} steps against "
                                f"{base} synchronous")
         if dev == "cuda":
@@ -1482,11 +1521,12 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
                for _ in range(args.requests)]
     # the quantized runs: the int8 route of decode_attention_paged and the
     # fp8 route of tree_attention_paged, each beside its bf16 run; the
-    # sampled runs at T = 1.0 with 2 greedy requests of 8, each repeated
-    # (seeded: bitwise equal), at 64 new tokens, and VSD (K = 8 draft
-    # forwards a step, its prefill most of the run) at 16 for 4 requests,
-    # for the time limit
-    sampled = dict(greedy=2, repeat=True, max_new=min(args.max_new, 64))
+    # 8-bit runs at 4 requests of 32 new tokens; the sampled runs the same
+    # with T = 1.0 and 2 greedy requests, each repeated (seeded: bitwise
+    # equal); VSD (K = 8 draft forwards a step, its prefill most of the
+    # run) at 16 for 4 requests; all for the time limit
+    short = dict(max_new=min(args.max_new, 32), requests=4)
+    sampled = dict(short, greedy=2, repeat=True)
     vsd = dict(max_new=min(args.max_new, 16), requests=4)
     runs = [
         ("pard paged", EngineConfig(), "decode_attention_paged"),
@@ -1498,10 +1538,10 @@ def phase_engine(torch, kernels, args, target="llama3.1-8b",
         (f"tree {','.join(map(str, WIDE))} contiguous",
          EngineConfig(tree=WIDE, kv_layout="contiguous"), "tree_attention"),
         ("pard paged int8", EngineConfig(kv_dtype="int8"),
-         ("decode_attention_paged", "int8")),
+         ("decode_attention_paged", "int8"), short),
         ("adaptive tree paged fp8", EngineConfig(adaptive_tree=True,
                                                  kv_dtype="fp8"),
-         ("tree_attention_paged", "fp8")),
+         ("tree_attention_paged", "fp8"), short),
         ("pard paged T=1.0", EngineConfig(temperature=1.0), None, sampled),
         ("adaptive tree paged T=1.0", EngineConfig(adaptive_tree=True,
                                                    temperature=1.0), None,
@@ -2869,7 +2909,7 @@ def step_parts_ms(torch, tr, params, state, batch):
 
 
 def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
-                    dev="cuda", extra=None):
+                    dev="cuda", extra=None, remat=False, falling=True):
     """One full-width training cell with the trainer that
     ``repro_torch.launch.train`` makes from ``flags``, from --seed weights:
     a B=1 step through the kernels and through the plain versions (loss and
@@ -2878,7 +2918,10 @@ def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
     launch of each kernel in ``names`` per layer per step and a finite,
     falling loss, and one more step cut into forward + loss, backward and
     AdamW; ``extra(tr, params, batch)``, if given, runs on the B=1 step's
-    weights and batch before the fit. Returns the launches of the fit."""
+    weights and batch before the fit. ``remat`` recomputes each layer in
+    the fit's backward passes (so each forward kernel launches twice a
+    layer and step); ``falling=False`` asks only for a finite loss.
+    Returns the launches of the fit."""
     import numpy as np
     from repro_torch.launch import train as launch_train
     from repro_torch.models import init_params
@@ -2905,6 +2948,7 @@ def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
         extra(tr, params, one)
 
     stream = corpus.batches(4, n, seed=args.seed)
+    tr.remat = remat
     _sync(dev)
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2917,7 +2961,9 @@ def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
     got_launches = dict(kernels.launches)     # just after
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     steps = len(hist)
-    want = {name: cfg.num_layers * steps for name in names}
+    want = {name: cfg.num_layers * steps
+            * (2 if remat and not name.endswith("_bwd") else 1)
+            for name in names}
     losses = [h["loss"] for h in hist]
     walls = [0.0] + [h["wall"] for h in hist]
     step_ms = np.diff(walls) * 1e3
@@ -2944,7 +2990,7 @@ def full_width_cell(torch, kernels, args, cfg, corpus, flags, n, names, tag,
     if got_launches != want:
         raise SmokeFailure(f"{tag}: launches {got_launches}, expected {want}")
     if not all(math.isfinite(x) for x in losses) or \
-            not losses[-1] < losses[0]:
+            (falling and not losses[-1] < losses[0]):
         raise SmokeFailure(f"{tag}: loss not finite and falling "
                            f"({losses[0]} -> {losses[-1]})")
     del params, state, tr
@@ -3707,19 +3753,21 @@ def _max_err(got, want):
             want.float().abs().max().item())
 
 
-def dense_cached(torch, kernels, params, cfg, toks, layout, dtype, ref, dev):
+def dense_cached(torch, kernels, params, cfg, toks, layout, dtype, ref, dev,
+                 rows=None, before=None):
     """A cached forward of ``toks`` [1, T] in windows: the first T - 16
-    tokens in prefill windows of ``PAGED_ROWS`` (paged, block 64) or
-    ``CONTIG_ROWS`` (contiguous) rows, then ``DENSE_TAIL``'s decode
-    windows, through the kernels and, on caches of their own, through the
-    plain versions. Returns ((a) the kernels' error against the cache-free
+    tokens in prefill windows of ``rows`` rows (default ``PAGED_ROWS``
+    paged, block 64, or ``CONTIG_ROWS`` contiguous), then ``DENSE_TAIL``'s
+    decode windows, through the kernels and, on caches of their own,
+    through the plain versions; ``before(pos, w)``, if given, runs before
+    each window. Returns ((a) the kernels' error against the cache-free
     logits ``ref``, (b) the kernels' error against the plain versions,
     the largest |logit|, the share of positions whose argmax agrees with
     ``ref``'s, the kernels' launches, windows)."""
     from repro_torch.models import forward, init_caches
     from repro_torch.serving import kv_pool
     t = toks.shape[1]
-    rows = PAGED_ROWS if layout == "paged" else CONTIG_ROWS
+    rows = rows or (PAGED_ROWS if layout == "paged" else CONTIG_ROWS)
     head = t - sum(DENSE_TAIL)
     widths = [min(rows, head - i) for i in range(0, head, rows)] + DENSE_TAIL
     kw = dict(dtype=dtype)
@@ -3742,6 +3790,8 @@ def dense_cached(torch, kernels, params, cfg, toks, layout, dtype, ref, dev):
     for w in widths:
         window = toks[:, pos:pos + w]
         cpos = torch.full((1,), pos, dtype=torch.long, device=dev)
+        if before is not None:
+            before(pos, w)
         kernels.launches.clear()
         lg, _ = forward(params, cfg, window, caches=caches[0], cache_pos=cpos,
                         **kw)
@@ -3888,6 +3938,292 @@ def phase_dense(torch, kernels, args, dev="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: MoE layers (granite-moe-3b-a800m, the jamba hybrid)
+# ---------------------------------------------------------------------------
+
+MOE_MODEL = "granite-moe-3b-a800m"   # 40 experts top 8, all 32 layers
+MOE_HYBRID = "jamba-1.5-large-398b"  # Mamba2 + attention + MoE
+MOE_HYBRID_LAYERS = 2                # of 72: attn_every 2 keeps both kinds
+MOE_LONG = 1023                      # (a): odd and past the 256-token
+#                                      group, so groups of one: no drops
+MOE_ROWS = {"paged": 32, "contiguous": 63}   # cached windows <= 64 rows:
+#                                      dropless routing
+MOE_NEW = 32                         # (c): new tokens of each request
+MOE_FLIPS_FP32 = 1e-3                # (a): most own choices that may
+#                                      differ from the recorded ones in fp32
+MOE_TRAIN = dict(n=513, steps=3)     # (e): B 4, so 2048 routed tokens:
+#                                      groups of 256, 64 slots an expert
+
+
+@contextlib.contextmanager
+def moe_routing(torch, book, n_moe, tol):
+    """Inside the block ``models.layers.moe_route`` records or replays the
+    MoE layers' expert choices. With ``book["idx"]`` None it records: each
+    call's top-k experts [n, k] and its router logits [n, e] (float32) are
+    appended to ``book["record"]``. Else call c takes the recorded experts
+    of MoE layer c % ``n_moe`` at rows ``book["rows"]`` (its gates
+    renormalized from its own probabilities, as moe_apply does). Two routes
+    whose activations differ by rounding pick different experts where two
+    router logits are within that rounding (bf16 router logits tie often);
+    replaying one route's choices holds the attention kernels to their
+    rounding alone. The route's own choices are held all the same: its
+    router logits to the recorded ones within ``tol`` x max(1, the row's
+    largest |logit|) (the bar of the output logits, ``DENSE_TOL``), and
+    each (token, layer) whose own top-k set differs from the recorded one
+    (a flip) to a near-tie: the recorded logits of an expert it dropped
+    and of one it took are at most twice that bar apart. On the device,
+    for one read at the end: ``book["flips"]`` and ``book["decisions"]``,
+    ``book["over"]`` the (token, layer)s past either bar, the largest gap
+    at a flip in logits (``book["gap"]``) and over the dtype's ulp at
+    the larger of the two logits (``book["gap_ulps"]``), and the largest
+    own-versus-recorded logit difference over its bar
+    (``book["dlogit"]``)."""
+    from repro_torch.models import layers
+    real = layers.moe_route
+
+    def route(params, x, cfg):
+        probs, idx, gates = real(params, x, cfg)
+        logits = (x @ params["router"].to(x.dtype)).float()
+        if book["idx"] is None:
+            book["record"].append((idx, logits))
+            return probs, idx, gates
+        want, ref = (r[book["rows"]] for r in
+                     book["record"][book["calls"] % n_moe])
+        book["calls"] += 1
+        bar = tol * ref.abs().amax(-1).clamp(min=1.0)
+        dl = (logits - ref).abs().amax(-1) / bar
+        mine = torch.zeros_like(ref, dtype=torch.bool).scatter_(1, idx, True)
+        theirs = torch.zeros_like(mine).scatter_(1, want, True)
+        flip = (mine != theirs).any(-1)
+        # the route ranks every expert it took above every one it dropped:
+        # the widest such pair's recorded gap, and the ulp in x's dtype of
+        # the larger of its two logits
+        dropped = torch.where(theirs & ~mine, ref, -float("inf")).amax(-1)
+        taken = torch.where(mine & ~theirs, ref, float("inf")).amin(-1)
+        gap = torch.where(flip, dropped - taken, 0.0)
+        ulp = torch.finfo(x.dtype).eps * torch.exp2(torch.floor(torch.log2(
+            torch.maximum(dropped.abs(), taken.abs()).clamp(min=1e-30))))
+        gap_ulps = torch.where(flip, gap / ulp, 0.0)
+        book["flips"] += flip.sum()
+        book["over"] += ((gap > 2 * bar) | (dl > 1)).sum()
+        book["decisions"] += want.shape[0]
+        book["gap"] = torch.maximum(book["gap"], gap.amax())
+        book["gap_ulps"] = torch.maximum(book["gap_ulps"], gap_ulps.amax())
+        book["dlogit"] = torch.maximum(book["dlogit"], dl.amax())
+        g = probs.gather(1, want)
+        return probs, want, g / (g.sum(-1, keepdim=True) + 1e-9)
+
+    layers.moe_route = route
+    try:
+        yield book
+    finally:
+        layers.moe_route = real
+
+
+def moe_family(torch, kernels, args, name, card, dev="cuda"):
+    """(a)-(c) of phase 15 for one family: its config at full width
+    (granite at all 32 layers, jamba cut to ``MOE_HYBRID_LAYERS``) and a
+    1-layer draft of the same family, random weights from --seed made on
+    the card, fp32 then bf16. Returns the card's launches by kernel."""
+    import dataclasses
+    from collections import Counter
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.config import MLP_MOE, SSM, layer_plan
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.training.optimizer import leaves
+
+    full = get_config(name)
+    cfg = full if name == MOE_MODEL else dataclasses.replace(
+        full, num_layers=MOE_HYBRID_LAYERS, attn_every=2)
+    dcfg = dataclasses.replace(cfg, num_layers=1, name=full.name + "-1l")
+    plan = layer_plan(cfg)
+    n_moe = sum(sp.mlp == MLP_MOE for sp in plan)
+    n_ssm = sum(sp.mixer == SSM for sp in plan)
+    n_attn = cfg.num_layers - n_ssm
+    total = Counter()
+    t0 = time.perf_counter()
+    tp = init_params(cfg, args.seed, dev, torch.float32)
+    dp = init_params(dcfg, args.seed + 1, dev, torch.float32)
+    _sync(dev)
+    n_t, n_d = (sum(x.numel() for x in leaves(p)) for p in (tp, dp))
+    log(f"[moe {name}] {cfg.num_layers} of {full.num_layers} layers "
+        f"({n_attn} attention, {n_ssm} Mamba2; {n_moe} MoE: "
+        f"{cfg.moe_num_experts} experts top {cfg.moe_top_k}, expert d_ff "
+        f"{cfg.moe_d_ff}), d {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} (G {cfg.n_heads // cfg.n_kv_heads}, head dim "
+        f"{cfg.resolved_head_dim}), rope {cfg.use_rope}, vocab "
+        f"{cfg.vocab_size}; draft: the same at 1 layer; {n_t / 1e9:.2f}B + "
+        f"{n_d / 1e9:.2f}B random params from --seed, made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(args.seed + 59)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, MOE_LONG))).to(dev)
+    prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
+               for _ in range(4)]
+    free_want = {"flash_attention": n_attn, "ssd_chunked": n_ssm}
+    fp32_tokens = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        if dt == torch.bfloat16:        # jamba's fp32 pair takes 56 GB
+            del tp, dp
+            gc.collect()
+            torch.cuda.empty_cache()
+            tp = init_params(cfg, args.seed, dev, dt)
+            dp = init_params(dcfg, args.seed + 1, dev, dt)
+        # (a) and (b): one cache-free forward as the reference (its
+        # routing recorded), then the cached windows on both layouts with
+        # that routing replayed
+        book = dict(idx=None, record=[])
+        kernels.launches.clear()
+        with moe_routing(torch, book, n_moe, DENSE_TOL[dname]):
+            ref, _ = forward(tp, cfg, toks, dtype=dt)
+        free = dict(kernels.launches)
+        total.update(free)
+        if free != {k: v for k, v in free_want.items() if v}:
+            raise SmokeFailure(f"{name}: cache-free launches {free}")
+        for layout in ("paged", "contiguous"):
+            t1 = time.perf_counter()
+            book.update(idx=book["record"], rows=slice(0), calls=0,
+                        decisions=0, **{k: torch.zeros((), device=dev) for k
+                                        in ("flips", "over", "gap",
+                                            "gap_ulps", "dlogit")})
+            with moe_routing(torch, book, n_moe, DENSE_TOL[dname]):
+                ea, eb, scale, agree, got, nw = dense_cached(
+                    torch, kernels, tp, cfg, toks, layout, dt, ref, dev,
+                    rows=MOE_ROWS[layout],
+                    before=lambda pos, w: book.update(
+                        rows=slice(pos, pos + w)))
+            total.update(got)
+            flips, over = int(book["flips"]), int(book["over"])
+            kname = ("decode_attention_paged" if layout == "paged"
+                     else "decode_attention")
+            want = {kname: n_attn * nw, "ssd_chunked": n_ssm * nw}
+            want = {k: v for k, v in want.items() if v}
+            tol = DENSE_TOL[dname] * max(1.0, scale)
+            log(f"[moe {name}] {dname} {layout}, {MOE_LONG} tokens in {nw} "
+                f"windows of <= {MOE_ROWS[layout]} rows (dropless; "
+                f"{time.perf_counter() - t1:.1f}s): (a) cached vs "
+                f"cache-free max_abs_err={ea:.3e}, (b) kernels vs plain "
+                f"max_abs_err={eb:.3e}, tol={tol:.3e} (max |logit| "
+                f"{scale:.2f}), routing of the cache-free forward replayed; "
+                f"own top-k differing from it in {flips} of "
+                f"{book['decisions']} (token, MoE layer) decisions, the "
+                f"widest recorded gap at a flip {float(book['gap']):.3e} "
+                f"({float(book['gap_ulps']):.1f} ulp of {dname}), own router "
+                f"logits off by at most {float(book['dlogit']):.3f} x their "
+                f"bar, {over} past a bar; argmax agreement {agree:.4f}; "
+                f"launches {got}")
+            if got != want:
+                raise SmokeFailure(f"{name} {layout}: launches {got}, "
+                                   f"expected {want}")
+            if not (ea <= tol and eb <= tol):
+                raise SmokeFailure(f"{name} {dname} {layout}: cached logits "
+                                   f"off by {ea} / {eb} > {tol}")
+            if over or (dt == torch.float32
+                        and flips > MOE_FLIPS_FP32 * book["decisions"]):
+                raise SmokeFailure(f"{name} {dname} {layout}: routing off "
+                                   f"the recorded one: {flips} flips of "
+                                   f"{book['decisions']}, {over} past a bar")
+        del ref, book
+        torch.cuda.empty_cache()
+        # (c): the engine, K = 8, paged KV in the params' dtype
+        kv = "fp32" if dt == torch.float32 else "bf16"
+        pard = EngineConfig(kv_dtype=kv, mode="pard", k=8)
+        runs = [("pard", pard, False)]
+        if dt == torch.float32:
+            runs.append(("ar", EngineConfig(kv_dtype=kv, mode="ar"), False))
+            if n_ssm == 0:          # an SSM target serves flat only
+                runs.append(("adaptive tree", EngineConfig(
+                    kv_dtype=kv, mode="pard", k=8, adaptive_tree=True),
+                    False))
+        else:                                   # warm before the timed run
+            warm = Engine(tp, cfg, dp, dcfg, config=pard, device=dev)
+            warm.submit(prompts[0][:32], 8)
+            warm.run()
+            del warm
+            if n_ssm == 0:
+                runs.append(("pard pipelined", pard, True))
+        out = {}
+        for mode, c, pipelined in runs:
+            out[mode], got, info = serve(
+                torch, kernels, Engine, c, tp, cfg, dp, dcfg, prompts,
+                MOE_NEW, f"moe {name} {mode} {dname}", dev,
+                pipelined=pipelined)
+            total.update(got)
+            lat = info["lat"]
+            log(f"[moe {name}] engine {mode} {dname} (K 8, paged {kv} KV, "
+                f"4 requests of {args.prompt_len} + {MOE_NEW}): "
+                f"{info['tok_s']:.1f} tok/s, step p50 "
+                f"{lat['step_p50_ms']:.2f} ms, mean accepted "
+                f"{info['mean_accepted']:.3f} on {card}")
+        if dt == torch.float32:
+            fp32_tokens = out
+        elif "pard pipelined" in out:
+            same = all(np.array_equal(out["pard pipelined"][r],
+                                      out["pard"][r]) for r in out["pard"])
+            log(f"[moe {name}] bf16 pipelined (host side under the sync "
+                f"guard) tokens == sync tokens: {same}")
+            if not same:
+                raise SmokeFailure(f"{name}: pipelined tokens differ")
+        torch.cuda.empty_cache()
+    for mode in set(fp32_tokens) - {"ar"}:
+        same = all(np.array_equal(fp32_tokens[mode][r], fp32_tokens["ar"][r])
+                   for r in fp32_tokens["ar"])
+        log(f"[moe {name}] fp32 {mode} tokens == AR tokens: {same}")
+        if not same:
+            raise SmokeFailure(f"{name}: fp32 {mode} tokens differ from AR")
+    del tp, dp
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_moe(torch, kernels, args, dev="cuda"):
+    """MoE layers on the card: (a)-(c) of ``moe_family`` for
+    granite-moe-3b-a800m (full width, 32 layers) and for the jamba hybrid
+    (full width, 2 layers), then (e) granite AR training at full width and
+    depth through ``full_width_cell`` (B 4, N 513: capacity routing runs;
+    3 steps, each layer recomputed in the backward pass, which the card's
+    memory needs; a finite loss, the aux term in it: from random weights
+    it rose over 3 steps at peak lr 1e-3 and at 3e-4). Returns the
+    launches by kernel."""
+    import argparse as ap
+    from collections import Counter
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+
+    card = card_line()
+    total = Counter()
+    for name in (MOE_MODEL, MOE_HYBRID):
+        # jamba's fp32 pair takes 56 GB: nothing of an earlier phase may
+        # wait on the card for the cyclic garbage collector
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            log(f"[moe] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                f"allocated before {name}")
+        t0 = time.perf_counter()
+        total.update(moe_family(torch, kernels, args, name, card, dev))
+        log(f"[phase time] moe {name}: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_MODEL)
+    corpus = MarkovCorpus(vocab_size=cfg.vocab_size, seed=0, determinism=2.0)
+    n, steps = MOE_TRAIN["n"], MOE_TRAIN["steps"]
+    flags = ["--arch", MOE_MODEL, "--steps", str(steps), "--batch", "4",
+             "--seq", str(n), "--seed", str(args.seed), "--lr",
+             str(TRAIN_LR), "--device", dev, "--dtype", "bfloat16"]
+    total.update(full_width_cell(
+        torch, kernels, ap.Namespace(**{**vars(args), "train_steps": steps}),
+        cfg, corpus, flags, n, TRAIN_KERNELS["flash"], "train moe", dev,
+        remat=True, falling=False))
+    log(f"[phase time] moe training: {time.perf_counter() - t0:.1f}s")
+    return dict(total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3950,6 +4286,7 @@ def main(argv=None) -> int:
             timing[name]["train_launches"] = ssm_launches[name]
         tree_ssm = timed(phase_tree_ssm_draft, torch, kernels, args)
         dense = timed(phase_dense, torch, kernels, args)
+        moe = timed(phase_moe, torch, kernels, args)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3975,6 +4312,8 @@ def main(argv=None) -> int:
         timing[name]["tree_ssm_launches"] = tree_ssm.get(name, 0)
         timing[name]["dense_launches"] = {
             fam: got[name] for fam, got in dense.items() if got.get(name)}
+        # phase 15's MoE runs (granite, jamba, granite training)
+        timing[name]["moe_launches"] = moe.get(name, 0)
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=launches[name],

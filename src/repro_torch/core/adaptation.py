@@ -6,7 +6,10 @@ under the COD attention mask of (segment, base). ``per_subtask_norm=True``
 is Eq. 8 (each subtask's loss is averaged over its own token count, then
 the subtasks are summed); ``False`` is a plain token mean. Log-softmax is
 taken in float32; the padded vocab rows hold -1e9 (``unembed_apply``) and
-so carry no probability.
+so carry no probability. For a model with MoE layers the AR loss adds
+``aux_weight`` times the layers' load-balance loss, and the COD loss
+reports it as the metric ``load_balance_loss`` without adding it, as the
+JAX package does.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.pard_attention import PardMaskInfo
-from ..models.config import ATTN_LOCAL, scan_plan
+from ..models.config import ATTN_LOCAL, MLP_MOE, scan_plan
 from ..models.transformer import forward
 from .cod import IGNORE
 from .spec_decode import has_ssm
@@ -33,6 +36,11 @@ def refuse_ssm_cod(cfg) -> None:
             f"cannot train on a packed COD row, because the recurrence "
             f"carries the packed row's real tokens (the labels) into every "
             f"mask token; train it with the AR objective")
+
+
+def has_moe(cfg) -> bool:
+    plan = scan_plan(cfg)
+    return any(s.mlp == MLP_MOE for s in plan.prefix + plan.period)
 
 
 def has_local_layers(cfg) -> bool:
@@ -70,19 +78,21 @@ def pard_adaptation_loss(params, cfg, batch, *, k_max: int = 0,
     """batch: dict of [B, T] tensors from ``cod.pack_batch`` (input_ids,
     position_ids, labels, segment, base; int). Returns (loss, metrics):
     ``loss_subtask_s`` for s = 1..k_max with Eq. 8, ``token_mean_nll`` and
-    ``n_loss_tokens``, all tensors. Raises ``ValueError`` for a config
-    with SSM layers (``refuse_ssm_cod``), and for one with local attention
-    layers when the row's positions span more than its window
-    (``refuse_windowed_cod``)."""
+    ``n_loss_tokens`` (and ``load_balance_loss`` for a model with MoE
+    layers, which the loss does not add), all tensors. Raises
+    ``ValueError`` for a config with SSM layers (``refuse_ssm_cod``), and
+    for one with local attention layers when the row's positions span
+    more than its window (``refuse_windowed_cod``)."""
     refuse_ssm_cod(cfg)
     if has_local_layers(cfg):       # the span's read waits for the device
         refuse_windowed_cod(cfg, int(batch["position_ids"].max()) + 1)
     seg = batch["segment"].to(torch.int32).contiguous()
     base = batch["base"].to(torch.int32).contiguous()
     mask_info = PardMaskInfo(seg, base)
-    logits, _ = forward(params, cfg, batch["input_ids"],
-                        positions=batch["position_ids"], mask_info=mask_info,
-                        dtype=dtype, remat=remat)
+    logits, _, aux = forward(params, cfg, batch["input_ids"],
+                             positions=batch["position_ids"],
+                             mask_info=mask_info, dtype=dtype, remat=remat,
+                             return_aux=True)
     labels = batch["labels"].long()
     valid = labels != IGNORE
     tok_nll = _token_nll(logits, labels)
@@ -101,12 +111,19 @@ def pard_adaptation_loss(params, cfg, batch, *, k_max: int = 0,
         loss = token_mean
     metrics["token_mean_nll"] = token_mean
     metrics["n_loss_tokens"] = n_valid
+    if has_moe(cfg):
+        metrics["load_balance_loss"] = aux
     return loss, metrics
 
 
-def ar_loss(params, cfg, tokens, *, dtype=torch.bfloat16, remat: bool = False):
+def ar_loss(params, cfg, tokens, *, dtype=torch.bfloat16,
+            aux_weight: float = 0.0, remat: bool = False):
     """Plain next-token AR loss (Eq. 1) over tokens [B, N]: the mean NLL of
-    tokens[:, 1:] given tokens[:, :-1]. Returns (loss, {"nll": loss})."""
-    logits, _ = forward(params, cfg, tokens[:, :-1], dtype=dtype, remat=remat)
-    loss = _token_nll(logits, tokens[:, 1:].long()).mean()
-    return loss, {"nll": loss}
+    tokens[:, 1:] given tokens[:, :-1], plus ``aux_weight`` times the
+    load-balance loss for a model with MoE layers. Returns (loss,
+    {"nll": the mean NLL})."""
+    logits, _, aux = forward(params, cfg, tokens[:, :-1], dtype=dtype,
+                             remat=remat, return_aux=True)
+    nll = _token_nll(logits, tokens[:, 1:].long()).mean()
+    loss = nll + aux_weight * aux
+    return loss, {"nll": nll}

@@ -7,8 +7,12 @@ weights, or on checkpoints, and stream synthetic requests through it.
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
 the tiny-* and ``-smoke`` configs there, e.g. ``--target gemma2-27b-smoke
---draft gemma2-27b-smoke``; a Mamba2 or hybrid draft such as ``--draft
-tiny-ssm`` also drafts trees for a dense target). ``--target-ckpt`` / ``--draft-ckpt`` restore
+--draft gemma2-27b-smoke``, the MoE ``--target granite-moe-3b-a800m-smoke
+--draft granite-moe-3b-a800m-smoke`` or the Mamba2 + attention + MoE
+hybrid ``jamba-1.5-large-398b-smoke``; a Mamba2 or hybrid draft such as
+``--draft tiny-ssm`` also drafts trees for a dense or MoE target, while a
+target with Mamba2 layers serves flat only). ``--target-ckpt`` /
+``--draft-ckpt`` restore
 checkpoints of either package (``training.checkpoint``, e.g. what
 ``repro_torch.examples.pard_adaptation_train`` writes) into the seeded
 weights. The prompts are drawn from the Markov corpus

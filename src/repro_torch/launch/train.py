@@ -5,9 +5,12 @@ synthetic Markov corpus, from random seeded weights or a checkpoint.
       --steps 100 --batch 4 --seq 512 [--pard] [--init ckpt.npz]
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
-the tiny-* configs there). Dense, Mamba2 (``--arch mamba2-130m``,
-``tiny-ssm``) and dense-hybrid configs train with the AR objective
-(Mamba2 layers through the SSD scan's forward and backward kernels);
+the tiny-* and ``-smoke`` configs there). Dense, MoE (``--arch
+granite-moe-3b-a800m``, ``granite-moe-3b-a800m-smoke``; the AR loss adds
+0.01 x the load-balance loss), Mamba2 (``--arch mamba2-130m``,
+``tiny-ssm``) and hybrid configs (``jamba-1.5-large-398b-smoke``) train
+with the AR objective (Mamba2 layers through the SSD scan's forward and
+backward kernels);
 ``--pard`` with a model that has SSM layers raises ``ValueError`` before
 any step (the recurrence would carry COD's labels into its mask
 tokens), as it does for a model with local attention layers (gemma2) when

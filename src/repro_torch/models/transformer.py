@@ -1,12 +1,13 @@
 """Decoder-only transformer on paged KV pools or contiguous KV caches.
 
-Port of ``repro.models.transformer`` for dense GQA, Mamba2 (SSM) and
-dense hybrid configs, with the dense families' block variants: LayerNorm
-and the parallel attention + MLP block (command-r), sandwich norms with
-(1 + scale) RMSNorm (gemma2). Params keep the
-JAX package's tree: ``embed``, ``final_norm``, ``prefix`` (a list of layer
-dicts) and ``scan`` (one dict per period position, every leaf stacked on a
-leading ``n_repeats`` axis); the layer loop indexes the stacked leaves.
+Port of ``repro.models.transformer`` for GQA, Mamba2 (SSM) and hybrid
+configs with dense or top-k MoE MLPs (granite-moe, jamba), with the dense
+families' block variants: LayerNorm and the parallel attention + MLP
+block (command-r), sandwich norms with (1 + scale) RMSNorm (gemma2).
+Params keep the JAX package's tree: ``embed``, ``final_norm``, ``prefix``
+(a list of layer dicts) and ``scan`` (one dict per period position, every
+leaf stacked on a leading ``n_repeats`` axis); the layer loop indexes the
+stacked leaves.
 
   param_shapes(cfg)                              -> tree of leaf shapes
   init_params(cfg, seed, device, dtype)          -> seeded random params
@@ -17,6 +18,8 @@ leading ``n_repeats`` axis); the layer loop indexes the stacked leaves.
   forward(params, cfg, tokens, positions, mask_info=, remat=)
                                                  -> (logits, None)
   forward(..., return_hidden=True)               -> (logits, caches, hidden)
+  forward(..., return_aux=True)                  -> (logits, caches[, hidden],
+                                                     load-balance loss)
 
 Without caches the forward is the training path: the whole sequence
 attends to itself (``flash_attention``, or ``pard_attention`` under a COD
@@ -26,8 +29,11 @@ its activations. Mamba2 layers keep a float32 ``{"conv", "ssm"}`` state
 per batch row in the caches (``init_caches``); a forward with caches
 updates it in place, or, with a ``collect_ssm`` list, leaves it and
 appends the records ``core.spec_decode.gather_ssm_states`` needs to set
-it to the state after any token of the window. Other architectures (MoE, MLA,
-cross-attention, encoders) come with later slices.
+it to the state after any token of the window. MoE layers route their
+tokens as the JAX package does: dropless in cached windows of at most 64
+rows (decode, verify, prefill chunks), with per-group capacity (tokens
+past it dropped) in cache-free forwards and wider windows. Other
+architectures (MLA, cross-attention, encoders) come with later slices.
 """
 from __future__ import annotations
 
@@ -40,41 +46,43 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .attention import CacheBatch, gqa_apply, init_gqa_cache
-from .config import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE, MLP_NONE, SSM,
-                     ModelConfig, scan_plan)
+from .config import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE, MLP_MOE, MLP_NONE,
+                     SSM, ModelConfig, scan_plan)
+from .layers import mlp_shapes
 from .ssm import init_mamba2_state, mamba2_apply
 
 # leaves the JAX code multiplies in float32 (norm scales and LayerNorm
 # biases, the Mamba2 conv, decay, skip and gate-norm leaves); every other
-# leaf is cast to the activation dtype at use, so the port stores it in
-# that dtype
+# leaf (the MoE router too) is cast to the activation dtype at use, so the
+# port stores it in that dtype
 F32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "conv_w", "conv_b",
               "A_log", "D", "dt_bias", "ssm_norm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configs outside the ported slices: dense GQA decoders
+    """Raise for configs outside the ported slices: GQA decoders
     (LayerNorm, parallel blocks and sandwich norms included), Mamba2 (SSM)
-    stacks and hybrids of the two with dense MLPs."""
+    stacks and hybrids of the two, with dense or MoE MLPs. MLA,
+    cross-attention and encoders are refused."""
     plan = scan_plan(cfg)
     bad = [s for s in plan.prefix + plan.period
            if s.mixer not in (ATTN_GLOBAL, ATTN_LOCAL, SSM)
-           or s.mlp not in (MLP_DENSE, MLP_NONE)
+           or s.mlp not in (MLP_DENSE, MLP_MOE, MLP_NONE)
            or (s.mlp == MLP_NONE and s.mixer != SSM)]
     flags = [f for f in ("abs_pos", "is_encoder_decoder") if getattr(cfg, f)]
     if bad or flags or cfg.attn_kind != "gqa":
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA, Mamba2 and dense hybrid decoders "
-            f"are ported so far (unsupported layers {sorted(set(bad))}, "
-            f"flags {flags})")
+            f"{cfg.name}: only GQA, Mamba2 and hybrid decoders with dense "
+            f"or MoE MLPs are ported so far (unsupported layers "
+            f"{sorted({str(s) for s in bad})}, flags {flags})")
 
 
 def _layer_shapes(cfg: ModelConfig, spec):
     """{name: (shape, init)}: init is a fan-in (normal / sqrt(fan_in)),
     "ones", "zeros", "conv" (normal x 0.1) or "a_log" (log(linspace(1, 16,
     H))) — the JAX package's _init_layer with init_gqa / init_mlp /
-    init_mamba2. A parallel block has no ``norm2`` (its MLP reads
-    ``norm1``'s output); sandwich norms add ``post_norm1`` (and
+    init_moe / init_mamba2. A parallel block has no ``norm2`` (its MLP
+    reads ``norm1``'s output); sandwich norms add ``post_norm1`` (and
     ``post_norm2`` with an MLP)."""
     d = cfg.d_model
     if spec.mixer == SSM:
@@ -89,10 +97,13 @@ def _layer_shapes(cfg: ModelConfig, spec):
     else:
         mixer = gqa_shapes(cfg)
     layer = {"norm1": L.norm_shapes(cfg), "mixer": mixer}
+    if spec.mlp != MLP_NONE and not cfg.parallel_block:
+        layer["norm2"] = L.norm_shapes(cfg)
     if spec.mlp == MLP_DENSE:
-        if not cfg.parallel_block:
-            layer["norm2"] = L.norm_shapes(cfg)
-        layer["mlp"] = mlp_shapes(d, cfg.d_ff, cfg.mlp_gated)
+        layer["mlp"] = mlp_shapes(d, cfg.first_dense_d_ff or cfg.d_ff,
+                                  cfg.mlp_gated)
+    elif spec.mlp == MLP_MOE:
+        layer["mlp"] = L.moe_shapes(cfg)
     if cfg.post_block_norms:
         layer["post_norm1"] = L.norm_shapes(cfg)
         if spec.mlp != MLP_NONE:
@@ -112,14 +123,6 @@ def gqa_shapes(cfg: ModelConfig):
     if cfg.qk_norm:
         mixer.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
     return mixer
-
-
-def mlp_shapes(d: int, f: int, gated: bool):
-    """{name: (shape, init)} of a dense MLP (``init_mlp``)."""
-    mlp = {"wi": ((d, f), d), "wo": ((f, d), f)}
-    if gated:
-        mlp["wg"] = ((d, f), d)
-    return mlp
 
 
 def _stack(tree, n: int):
@@ -249,7 +252,10 @@ def _cache_len(caches) -> int:
 
 
 def _apply_layer(lp, cfg: ModelConfig, spec, x, *, cache=None, batch=None,
-                 positions=None, mask_info=None, collect=None):
+                 positions=None, mask_info=None, collect=None,
+                 dropless=False):
+    """(x after the layer, its load-balance loss: a 0-d float32 tensor
+    for a MoE layer, else None)."""
     h = L.norm_apply(lp["norm1"], x, cfg)
     if spec.mixer == SSM:
         y, record = mamba2_apply(lp["mixer"], cfg, h, state=cache,
@@ -263,15 +269,19 @@ def _apply_layer(lp, cfg: ModelConfig, spec, x, *, cache=None, batch=None,
     if cfg.post_block_norms:
         y = L.norm_apply(lp["post_norm1"], y, cfg)
     if spec.mlp == MLP_NONE:
-        return x + y
+        return x + y, None
     if cfg.parallel_block:
-        return x + y + L.mlp_apply(lp["mlp"], h, act=cfg.mlp_act)
+        return x + y + L.mlp_apply(lp["mlp"], h, act=cfg.mlp_act), None
     x = x + y
-    m = L.mlp_apply(lp["mlp"], L.norm_apply(lp["norm2"], x, cfg),
-                    act=cfg.mlp_act)
+    h2 = L.norm_apply(lp["norm2"], x, cfg)
+    aux = None
+    if spec.mlp == MLP_MOE:
+        m, aux, _ = L.moe_apply(lp["mlp"], h2, cfg, dropless=dropless)
+    else:
+        m = L.mlp_apply(lp["mlp"], h2, act=cfg.mlp_act)
     if cfg.post_block_norms:
         m = L.norm_apply(lp["post_norm2"], m, cfg)
-    return x + m
+    return x + m, aux
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
@@ -279,7 +289,7 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             kv_block_size: int = 0, dtype=torch.bfloat16,
             last_only: bool = False, tree_info=None, mask_info=None,
             remat: bool = False, collect_ssm: Optional[list] = None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, return_aux: bool = False):
     """Run the decoder stack.
 
     tokens [B, T]. With ``caches`` (written in place), a window against KV
@@ -294,9 +304,13 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     cached state and write the new state in place; given a
     ``collect_ssm`` list they leave it and append one record each
     (``models.ssm.mamba2_apply``) for ``core.spec_decode.gather_ssm_states``.
+    MoE layers route dropless in a cached window of at most 64 rows and
+    with per-group capacity otherwise (the JAX forward's rule).
     Returns (logits [B, T or 1, padded_vocab], caches), and with
     ``return_hidden`` also the pre-final-norm features [B, T or 1, d] (the
-    JAX forward's ``aux["hidden"]``, which EAGLE heads condition on).
+    JAX forward's ``aux["hidden"]``, which EAGLE heads condition on), and
+    with ``return_aux`` last the MoE layers' load-balance losses summed
+    in layer order (a 0-d float32 tensor; 0 without MoE layers).
     """
     check_supported(cfg)
     plan = scan_plan(cfg)
@@ -324,10 +338,15 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
                 block_size=kv_block_size,
                 max_len=0 if block_tables is not None else _cache_len(caches),
                 tree_info=tree_info)
-        layer_kw = [dict(cache=c, batch=batch, collect=collect)
+        # routing that depends on the window's other rows would break
+        # speculative decoding's equality with AR: decode, verify and
+        # prefill-chunk windows route dropless
+        dropless = t <= 64
+        layer_kw = [dict(cache=c, batch=batch, collect=collect,
+                         dropless=dropless)
                     for c in caches["prefix"]] + [
             dict(cache=_index(caches["scan"][j], r), batch=batch,
-                 collect=collect)
+                 collect=collect, dropless=dropless)
             for r in range(plan.n_repeats) for j in range(len(plan.period))]
 
     layers = [(params["prefix"][i], spec) for i, spec in enumerate(plan.prefix)]
@@ -335,14 +354,16 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     layers += [(scan[j][r], spec) for r in range(plan.n_repeats)
                for j, spec in enumerate(plan.period)]
     x = L.embed_apply(params["embed"], tokens, cfg, dtype=dtype)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (lp, spec), kw in zip(layers, layer_kw):
         run = functools.partial(_apply_layer, lp, cfg, spec, **kw)
-        x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        x, aux = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        if aux is not None:
+            aux_total = aux_total + aux
     if last_only:
         x = x[:, -1:]
     hidden = x
     x = L.norm_apply(params["final_norm"], x, cfg)
     logits = L.unembed_apply(params["embed"], x, cfg)
-    if return_hidden:
-        return logits, caches, hidden
-    return logits, caches
+    out = (logits, caches) + ((hidden,) if return_hidden else ())
+    return out + (aux_total,) if return_aux else out

@@ -4,7 +4,9 @@ Port of ``repro.training.train_loop``. ``Trainer`` runs one eager step per
 batch on ``device`` (the CUDA card unless the caller asks for another):
 the loss's forward through the attention and SSD kernels, autograd's
 backward through their backward kernels, then ``AdamW.update`` in place.
-Mamba2 and hybrid models train with the AR objective; PARD adaptation of
+The AR objective adds 0.01 x the MoE layers' load-balance loss, as the
+JAX Trainer's does (a model without MoE layers adds nothing). Mamba2 and
+hybrid models train with the AR objective; PARD adaptation of
 a model with SSM layers raises (``core.adaptation.refuse_ssm_cod``), and
 so does that of a model with local attention layers on sequences longer
 than its window (``refuse_windowed_cod``, at ``make_batch``). A step
@@ -64,7 +66,7 @@ class Trainer:
         """(loss, metrics) of one batch from ``make_batch``."""
         if self.loss_kind == "ar":
             return ar_loss(params, self.cfg, batch["tokens"], dtype=self.dtype,
-                           remat=self.remat)
+                           aux_weight=0.01, remat=self.remat)
         cod = self.cod or CodConfig()
         return pard_adaptation_loss(params, self.cfg, batch, k_max=cod.k,
                                     dtype=self.dtype, remat=self.remat)

@@ -1688,3 +1688,115 @@ def test_dense_family_pard_equals_ar_on_card(cuda, name):
     for i in range(3):
         np.testing.assert_array_equal(pard[i], ar[i])
         np.testing.assert_array_equal(pard[i], cpu[i])
+
+
+# ------------------------------------------------ MoE families (-smoke size)
+MOE = ["granite-moe-3b-a800m", "jamba-1.5-large-398b"]
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("name", MOE)
+def test_moe_family_cached_equals_cache_free_on_card(cuda, name, layout):
+    """The family's -smoke config in fp32 on the card, B 1 x T 257: an
+    odd token count above 256 routes the cache-free forward in groups of
+    one token, so nothing is dropped, and cached windows of 64, 64, 64,
+    57 and 8 x 1 rows (dropless) through the kernels equal it and the CPU
+    port's logits (the plain versions) within 2e-3."""
+    from repro_torch.models import init_caches
+    cfg = get_config(name + "-smoke")
+    params = init_params(cfg, 0, "cpu", torch.float32)
+    on = _tree_to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 257)))
+    cpu, _ = forward(params, cfg, toks, dtype=torch.float32)
+    free, _ = forward(on, cfg, toks.to(cuda), dtype=torch.float32)
+    kw = dict(dtype=torch.float32)
+    if layout == "paged":
+        caches = kv_pool.init_paged_caches(cfg, 1, 10, 32, torch.float32,
+                                           cuda)
+        kw.update(block_tables=torch.arange(
+            1, 10, dtype=torch.int32, device=cuda)[None], kv_block_size=32)
+    else:
+        caches = init_caches(cfg, 1, 264, torch.float32, cuda)
+    kernels.launches.clear()
+    outs, t = [], 0
+    windows = [64, 64, 64, 57] + [1] * 8
+    for w in windows:
+        lg, _ = forward(on, cfg, toks[:, t:t + w].to(cuda), caches=caches,
+                        cache_pos=torch.full((1,), t, device=cuda), **kw)
+        outs.append(lg)
+        t += w
+    n_attn = sum(1 for i in range(cfg.num_layers)
+                 if not cfg.attn_every or i % cfg.attn_every
+                 == cfg.attn_every - 1)
+    kname = "decode_attention_paged" if layout == "paged" \
+        else "decode_attention"
+    assert kernels.launches[kname] == n_attn * len(windows)
+    v = cfg.vocab_size
+    cached = torch.cat(outs, 1)[..., :v].cpu()
+    torch.testing.assert_close(free[..., :v].cpu(), cpu[..., :v],
+                               atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(cached, cpu[..., :v], atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("dropless", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_on_card_reads_nothing_back(cuda, dropless, dtype):
+    """granite's routing (40 experts top 8) at width 256 over 4 x 64
+    tokens on CUDA tensors, capacity factor 0.5 so that capacity mode
+    drops, under ``set_sync_debug_mode("error")``: no value goes back to
+    the host; in fp32 the (token, slot)s kept are the CPU port's and the
+    output and load-balance loss are its within 1e-4 (bf16 router logits
+    may round differently on the card, so bf16 is held to finite outputs
+    and its drop rule)."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import init_tree
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              d_model=256, moe_d_ff=128,
+                              moe_capacity_factor=0.5)
+    p = init_tree(layers.moe_shapes(cfg), 0, "cpu", dtype)
+    x = torch.randn(4, 64, 256,
+                    generator=torch.Generator().manual_seed(1)).to(dtype)
+    on = _tree_to(p, cuda)
+    xc = x.to(cuda)
+    torch.cuda.synchronize()
+    with _sync_errors():
+        got, aux, keep = layers.moe_apply(on, xc, cfg, dropless=dropless)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
+    assert bool(keep.all()) == dropless
+    if dtype == torch.float32:
+        want, want_aux, want_keep = layers.moe_apply(p, x, cfg,
+                                                     dropless=dropless)
+        assert torch.equal(keep.cpu(), want_keep)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_family_pard_equals_ar_on_card(cuda, name):
+    """The -smoke config drafting for itself, fp32, K = 4, paged: PARD
+    tokens equal AR's and the CPU port's PARD tokens, and a pipelined
+    PARD run whose host side runs under the sync guard gives them too."""
+    cfg = get_config(name + "-smoke")
+    tp = init_params(cfg, 0, "cpu", torch.float32)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (90, 20, 70)]
+
+    def run(dev, mode, pipelined=False):
+        p = _tree_to(tp, dev)
+        eng = Engine(p, cfg, p, cfg, config=EngineConfig(
+            mode=mode, k=4, max_batch=2, max_len=160, kv_block_size=16,
+            kv_dtype="fp32"), device=dev)
+        rids = {eng.submit(x, 12): i for i, x in enumerate(prompts)}
+        if pipelined:
+            _guard_host_side(eng)
+        return {rids[c.rid]: c.tokens for c in eng.run(pipelined=pipelined)}
+
+    pard, ar, cpu = run(cuda, "pard"), run(cuda, "ar"), run("cpu", "pard")
+    pipe = run(cuda, "pard", pipelined=True)
+    for i in range(3):
+        np.testing.assert_array_equal(pard[i], ar[i])
+        np.testing.assert_array_equal(pard[i], cpu[i])
+        np.testing.assert_array_equal(pipe[i], pard[i])

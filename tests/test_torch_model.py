@@ -237,8 +237,14 @@ def test_forward_outside_the_slice_raises():
     moe = ModelConfig(name="m", arch_type="moe", num_layers=1, d_model=32,
                       n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
                       moe_num_experts=4, moe_top_k=2)
+    # MoE layers are ported: the router and the stacked experts build
+    assert init_params(moe, 0, "cpu")["scan"][0]["mlp"]["router"].shape \
+        == (1, 32, 4)
+    cross = ModelConfig(name="x", arch_type="vlm", num_layers=2, d_model=32,
+                        n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
+                        cross_attn_period=2, cross_kv_len=4)
     with pytest.raises(NotImplementedError):
-        init_params(moe, 0, "cpu")
+        init_params(cross, 0, "cpu")
     mla = ModelConfig(name="mla", arch_type="dense", num_layers=1,
                       d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
                       vocab_size=64, attn_kind="mla", kv_lora_rank=16,

@@ -362,13 +362,13 @@ def test_zero_ssm_rows_matches_jax(name):
 
 
 def test_outside_the_slice_still_raises():
-    moe = ModelConfig(name="m", arch_type="moe", num_layers=1, d_model=32,
-                      n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
-                      moe_num_experts=4, moe_top_k=2)
-    for fn in (functools.partial(init_params, moe, 0, "cpu"),
-               functools.partial(kv_pool.init_paged_caches, moe, 2, 3, 8,
+    cross = ModelConfig(name="x", arch_type="vlm", num_layers=2, d_model=32,
+                        n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
+                        cross_attn_period=2, cross_kv_len=4)
+    for fn in (functools.partial(init_params, cross, 0, "cpu"),
+               functools.partial(kv_pool.init_paged_caches, cross, 2, 3, 8,
                                  device="cpu"),
-               functools.partial(init_caches, moe, 2, 8, device="cpu")):
+               functools.partial(init_caches, cross, 2, 8, device="cpu")):
         with pytest.raises(NotImplementedError):
             fn()
     with pytest.raises(ValueError):            # collect needs caches

@@ -2,7 +2,7 @@
 """Device-time profile of one training step of the port on one CUDA card.
 
   PYTHONPATH=src python3 tools/profile_train_step.py [--arch llama3.2-1b]
-      [--pard] [--batch 4] [--seq 1024] [--seed 0] [--top 25]
+      [--pard] [--batch 4] [--seq 1024] [--seed 0] [--top 25] [--remat]
 
 Builds a ``Trainer`` as ``repro_torch.launch.train`` does (AdamW with its
 cosine schedule, COD at K=8, r=0.7, r_min=0.2 with ``--pard``) with bf16
@@ -12,7 +12,10 @@ CUDA activities). Prints the step times, the device kernels and the
 host ops with the most self device time, and one JSON line: the step
 p50, the device's busy time in the profiled step (the summed time of its
 kernels, memsets and copies on the one stream) and its share of the
-step, and the top kernels and ops. Only APIs that the port has had since it
+step, and the top kernels and ops. ``--remat`` recomputes each layer in
+the backward pass (granite-moe-3b-a800m's fp32 params, moments and
+gradients leave too little of the card for every layer's activations).
+Only APIs that the port has had since it
 first trained are used, so the script profiles an older tree the same
 way (``PYTHONPATH=<its src>``).
 """
@@ -33,6 +36,7 @@ def main(argv=None) -> int:
                     help="N per row (default 512 with --pard, else 1024)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--remat", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -53,7 +57,7 @@ def main(argv=None) -> int:
     tr = Trainer(cfg, AdamW(lr=cosine_schedule(1e-3, 5, 100)),
                  loss_kind="pard" if args.pard else "ar",
                  cod=CodConfig(8, 0.7, 0.2), dtype=torch.bfloat16,
-                 device="cuda")
+                 device="cuda", remat=args.remat)
     params = init_params(cfg, args.seed, "cuda", torch.float32)
     state = tr.init_state(params)
     stream = MarkovCorpus(vocab_size=cfg.vocab_size, seed=0,
